@@ -1,0 +1,46 @@
+"""NamedTuple state <-> dicts of numpy arrays keyed by field name.
+
+The port's state tuples (``MapArrays``, ``FrameFeatures``, ``PoseObs``)
+keep the JAX package's field names and shapes, so a dict from
+``jax.device_get(x)._asdict()`` converts field by field.  Descriptors are
+uint32 in the JAX package and int32 tensors here holding the same bits
+(``>>`` is not implemented for ``torch.uint32``); they cross as
+``ndarray.view``.  Floats become float32, other integers int32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def to_numpy(t, uint32_fields=()) -> dict:
+    """NamedTuple of tensors -> {field: ndarray}; ``uint32_fields`` are
+    returned as uint32 views of their int32 bits.  None fields are skipped."""
+    out = {}
+    for name, v in zip(t._fields, t):
+        if v is None:
+            continue
+        a = v.detach().cpu().numpy()
+        out[name] = a.view(np.uint32) if name in uint32_fields else a
+    return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    elif a.dtype.kind in "iu":
+        a = a.astype(np.int32)
+    return torch.tensor(a, device=device)  # a copy: never aliases the caller's buffer
+
+
+def from_numpy(cls, d: dict, device=None):
+    """{field: array} -> ``cls`` of tensors on ``device``; fields absent from
+    ``d`` (or None) are left None, which only optional fields may be."""
+    return cls(**{
+        name: None if d.get(name) is None else _tensor(d[name], device)
+        for name in cls._fields
+    })

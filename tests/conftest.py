@@ -53,3 +53,9 @@ def _clear_jax_caches_between_modules():
     """
     yield
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels); skipped without one"
+    )
