@@ -2,7 +2,7 @@
 
 Batched projection, unprojection and the analytic projection Jacobian on
 tensors with a leading batch shape.  The Kannala-Brandt model waits for the
-fisheye slice (ROADMAP, next steps 6); asking for it raises.
+fisheye slice (ROADMAP, next steps 4); asking for it raises.
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def _pinhole_only(cam: Camera):
     if cam.kind != PINHOLE:
         raise NotImplementedError(
             "Kannala-Brandt cameras wait for the fisheye slice "
-            "(ROADMAP, next steps 6)"
+            "(ROADMAP, next steps 4)"
         )
 
 

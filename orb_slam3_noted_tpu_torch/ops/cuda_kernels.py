@@ -1,5 +1,6 @@
-"""Hand-written Hopper kernels K1-K3 of the ORB front end, their wrappers,
-their plain PyTorch versions, and the build helper.
+"""Hand-written Hopper kernels K1-K3 of the ORB front end and K4 of the
+stereo matcher, their wrappers, their plain PyTorch versions, and the build
+helper.
 
 Port of :mod:`orb_slam3_noted_tpu.ops.pallas_kernels`:
 
@@ -9,6 +10,7 @@ wrapper                   CUDA source (``csrc/``)          plain version
 :func:`fast_score`        ``fast_score.cu``                :func:`fast_score_plain`
 :func:`gaussian_blur7`    ``gaussian_blur7.cu``            :func:`gaussian_blur7_plain`
 :func:`brief_sample`      ``brief_sample.cu``              :func:`brief_sample_plain`
+:func:`sad_stereo`        ``sad_stereo.cu``                :func:`sad_stereo_plain`
 ========================  ==============================  =======================
 
 Dispatch is by the tensor's device: a CPU tensor goes to the plain version,
@@ -105,7 +107,9 @@ def _library() -> ctypes.CDLL:
     lib.orb_fast_score.argtypes = [p, p, i, i, i, p]
     lib.orb_gaussian_blur7.argtypes = [p, p, p, i, i, i, p]
     lib.orb_brief_sample.argtypes = [p, p, p, p, i, i, i, i, p]
-    for fn in (lib.orb_fast_score, lib.orb_gaussian_blur7, lib.orb_brief_sample):
+    lib.orb_sad_stereo.argtypes = [p] * 10 + [i] * 5 + [p]
+    for fn in (lib.orb_fast_score, lib.orb_gaussian_blur7, lib.orb_brief_sample,
+               lib.orb_sad_stereo):
         fn.restype = ctypes.c_int
     return lib
 
@@ -250,7 +254,85 @@ def brief_sample(img_blur: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor) -> 
 
 brief_sample.launches = 0
 
-KERNELS = (fast_score, gaussian_blur7, brief_sample)
+
+# ---------------------------------------------------------------------------
+# K4: stereo SAD over level-stacked pyramid atlases
+# ---------------------------------------------------------------------------
+
+SAD_HALF = 5    # half SAD window (11x11)
+SAD_SLIDE = 5   # max slide (+-5 px)
+SAD_SHIFTS = 2 * SAD_SLIDE + 1
+
+
+def sad_stereo_plain(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Tensor:
+    """The gather form: 11x11 left patches and 11x21 right strips at each
+    keypoint's level, rows and columns clamped to that level with the
+    unclamped centres, then the 11 shifted sums.  Atlases (..., HA, W),
+    centres and levels (..., K) -> (..., K, 11) float32."""
+    dev = atlas_l.device
+    lv = lvl.long()
+    h = h_t.long()[lv][..., None]
+    w = w_t.long()[lv][..., None]
+    off = off_t.long()[lv][..., None]
+    d = torch.arange(-SAD_HALF, SAD_HALF + 1, device=dev)
+    dr = torch.arange(-(SAD_HALF + SAD_SLIDE), SAD_HALF + SAD_SLIDE + 1, device=dev)
+    zero = torch.zeros((), dtype=torch.long, device=dev)
+    yy = torch.clamp(cv.long()[..., None] + d, zero, h - 1) + off     # (..., K, 11)
+    xxl = torch.clamp(cu.long()[..., None] + d, zero, w - 1)
+    xxr = torch.clamp(cur.long()[..., None] + dr, zero, w - 1)         # (..., K, 21)
+    W = atlas_l.shape[-1]
+
+    def gather(atlas, xx):
+        flat = atlas.reshape(*atlas.shape[:-2], -1)
+        idx = yy[..., :, None] * W + xx[..., None, :]                  # (..., K, 11, n)
+        return torch.gather(flat, -1, idx.reshape(*idx.shape[:-3], -1)).reshape(idx.shape)
+
+    patch = gather(atlas_l, xxl)
+    strip = gather(atlas_r, xxr)
+    n = 2 * SAD_HALF + 1
+    return torch.stack(
+        [torch.sum(torch.abs(patch - strip[..., s:s + n]), dim=(-2, -1))
+         for s in range(SAD_SHIFTS)], dim=-1,
+    )
+
+
+def sad_stereo(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Tensor:
+    """(K, 11) float32 SADs of K left keypoints against the 11 shifts of
+    their right strips, from (HA, W) float32 atlases, (K,) int32 centres
+    ``cv, cu, cur`` and levels, and the (n_levels,) int32 level tables
+    (first atlas row, height, width); or (B, K, 11) from (B, HA, W) and
+    (B, K)."""
+    if not _on_card(atlas_l, "sad_stereo"):
+        return sad_stereo_plain(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t)
+    _check(atlas_l, "sad_stereo atlas_l", torch.float32, (2, 3))
+    nd = atlas_l.dim()
+    dev = atlas_l.device
+    _check(atlas_r, "sad_stereo atlas_r", torch.float32, (nd,), dev)
+    if atlas_r.shape != atlas_l.shape:
+        raise ValueError(f"sad_stereo: atlases {tuple(atlas_l.shape)} and {tuple(atlas_r.shape)}")
+    for t, n in ((cv, "cv"), (cu, "cu"), (cur, "cur"), (lvl, "lvl")):
+        _check(t, f"sad_stereo {n}", torch.int32, (nd - 1,), dev)
+        if t.shape != cv.shape or t.shape[:-1] != atlas_l.shape[:-2]:
+            raise ValueError(f"sad_stereo {n}: shape {tuple(t.shape)} does not fit")
+    for t, n in ((off_t, "off_t"), (h_t, "h_t"), (w_t, "w_t")):
+        _check(t, f"sad_stereo {n}", torch.int32, (1,), dev)
+        if t.shape != off_t.shape:
+            raise ValueError(f"sad_stereo {n}: {tuple(t.shape)} levels, expected {tuple(off_t.shape)}")
+    B = atlas_l.shape[0] if nd == 3 else 1
+    HA, W = atlas_l.shape[-2:]
+    K = cv.shape[-1]
+    out = torch.empty((*cv.shape, SAD_SHIFTS), dtype=torch.float32, device=dev)
+    if K and off_t.shape[0]:
+        _launch(_library().orb_sad_stereo, "sad_stereo", dev,
+                _ptr(atlas_l), _ptr(atlas_r), _ptr(cv), _ptr(cu), _ptr(cur), _ptr(lvl),
+                _ptr(off_t), _ptr(h_t), _ptr(w_t), _ptr(out), B, K, HA, W, off_t.shape[0])
+        sad_stereo.launches += 1
+    return out
+
+
+sad_stereo.launches = 0
+
+KERNELS = (fast_score, gaussian_blur7, brief_sample, sad_stereo)
 
 
 def reset_launch_counts() -> None:

@@ -48,11 +48,11 @@ def reproj_residuals(
     observations; chi2 includes inv_sigma2 and is 0 where not ok."""
     if cam2 is not None or obs.is_right is not None:
         raise NotImplementedError(
-            "two-camera residual rows wait for the fisheye slice (ROADMAP, next steps 6)"
+            "two-camera residual rows wait for the fisheye slice (ROADMAP, next steps 4)"
         )
     if cam.kind != cam_mod.PINHOLE:
         raise NotImplementedError(
-            "Kannala-Brandt residuals wait for the fisheye slice (ROADMAP, next steps 6)"
+            "Kannala-Brandt residuals wait for the fisheye slice (ROADMAP, next steps 4)"
         )
     R = Rcw[obs.pose_idx.long()]        # (O, 3, 3)
     t = tcw[obs.pose_idx.long()]        # (O, 3)

@@ -108,7 +108,7 @@ def pose_optimization(
     """Optimise one camera pose against fixed landmarks; pose + inliers."""
     if cam2 is not None or obs.is_right is not None:
         raise NotImplementedError(
-            "two-camera pose optimisation waits for the fisheye slice (ROADMAP, next steps 6)"
+            "two-camera pose optimisation waits for the fisheye slice (ROADMAP, next steps 4)"
         )
     Rcw, tcw, active = Rcw0, tcw0, obs.valid
     for rnd in range(N_ROUNDS):

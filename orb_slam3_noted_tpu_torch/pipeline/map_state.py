@@ -6,8 +6,10 @@ shapes, so states compare field by field with the JAX package
 function returns a new ``MapArrays`` and leaves its argument untouched.
 Descriptors are int32 tensors holding the JAX package's uint32 bits.
 
-Keyframe and point culling, compaction and the point-statistics refresh
-wait for the keyframe-insertion slice (ROADMAP, next steps 1).
+Integer segment sums are ``index_add_`` (exact in any order); where two
+rows of a scatter can name the same target the write is resolved to the
+last row (:func:`scatter_set_last`), so results do not change from run to
+run on the card.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from orb_slam3_noted_tpu_torch.io.config import SlamConfig
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
+from orb_slam3_noted_tpu_torch.ops.segsum import segment_sum
 from orb_slam3_noted_tpu_torch.utils import interop
 from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 
@@ -112,6 +115,21 @@ def _set(t: torch.Tensor, idx, value) -> torch.Tensor:
     return out
 
 
+def scatter_set_last(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Functional ``dst.at[idx].set(val)`` along dim 0 where ``idx`` may
+    repeat: the last row naming a target wins, on every device (a scatter
+    with repeated indices has no defined order on CUDA).  Losing rows write
+    to a scratch row that is cut off."""
+    n = dst.shape[0]
+    idx = idx.long()
+    rows = torch.arange(idx.shape[0], device=dst.device)
+    last = torch.full((n,), -1, dtype=torch.long, device=dst.device)
+    last.scatter_reduce_(0, idx, rows, reduce="amax")
+    ext = torch.cat([dst, dst[:1]])
+    ext[torch.where(last[idx] == rows, idx, n)] = val
+    return ext[:n]
+
+
 def add_keyframe(
     m: MapArrays,
     slot: int,
@@ -188,7 +206,7 @@ def local_map_mask(m: MapArrays, slot: int, n_neighbors: int = 10):
 
 def add_map_points(
     m: MapArrays,
-    start_slot: int,
+    start_slot,                 # int or 0-d int32 tensor: first free slot
     pos: torch.Tensor,          # (n_new, 3) world positions
     desc: torch.Tensor,         # (n_new, 8)
     normal: torch.Tensor,       # (n_new, 3)
@@ -198,15 +216,14 @@ def add_map_points(
     accept: torch.Tensor,       # (n_new,) bool
     kf_a: int,
     feat_a: torch.Tensor,       # (n_new,) feature index in kf_a
-    kf_b: int,
+    kf_b,                       # int, or (n_new,) keyframe per entry
     feat_b: torch.Tensor,       # (n_new,) feature index in kf_b
 ) -> MapArrays:
     """Allocate `accept`-masked new map points at consecutive slots.
 
     Slot for entry i = start_slot + cumsum(accept)[i] (dense packing);
     rejected entries go to the scratch slot MP-1, which stays invalid.  Also
-    binds the two observing features.  Only accepted entries are written,
-    so every index written is unique.
+    binds the two observing features.
     """
     MP = m.mp_pos.shape[0]
     offs = torch.cumsum(accept.to(torch.int32), dim=0) - 1
@@ -235,10 +252,208 @@ def add_map_points(
         mp_visible=put(m.mp_visible, None, 1),
         mp_found=put(m.mp_found, None, 1),
     )
-    kf_mp = m.kf_mp.clone()
-    kf_mp[kf_a, feat_a[ok].long()] = slot[ok].to(torch.int32)
-    kf_mp[kf_b, feat_b[ok].long()] = slot[ok].to(torch.int32)
+    # feature bindings, first keyframe a's then keyframe b's.  As in the JAX
+    # package every row writes: an accepted row its slot, any other row the
+    # value it found.  Where rows name the same feature the last row counts
+    # (the order its scatter runs in), so a rejected row after an accepted
+    # one restores the old binding.
+    NF = m.kf_mp.shape[1]
+    slot32 = slot.to(torch.int32)
+    kf_mp = m.kf_mp.reshape(-1)
+    for kf, feat in ((kf_a, feat_a), (kf_b, feat_b)):
+        tgt = torch.as_tensor(kf, device=slot.device).long() * NF + feat.long()
+        kf_mp = scatter_set_last(kf_mp, tgt, torch.where(ok, slot32, kf_mp[tgt]))
+    kf_mp = kf_mp.reshape(m.kf_mp.shape)
     obs = m.obs_mat.clone()
     obs[kf_a, s] = True
-    obs[kf_b, s] = True
+    obs[kf_b[ok].long() if isinstance(kf_b, torch.Tensor) and kf_b.dim() else kf_b, s] = True
     return m._replace(kf_mp=kf_mp, obs_mat=obs)
+
+
+def cull_map_points(m: MapArrays, current_kf: int) -> MapArrays:
+    """Remove unreliable recent map points (``LocalMapping::MapPointCulling``):
+    found/visible ratio below 0.25, or 2+ keyframes old and still observed by
+    fewer than 3 keyframes.  Only points up to 3 keyframes old are audited."""
+    ratio_bad = m.mp_found.to(torch.float32) < 0.25 * m.mp_visible.to(torch.float32)
+    age = current_kf - m.mp_ref_kf
+    recent = age <= 3
+    weak = (age >= 2) & (m.mp_nobs < 3)
+    keep = m.mp_valid & ~(recent & (ratio_bad | weak))
+    # unbind culled points everywhere
+    kf_mp = torch.where(keep[m.kf_mp.clamp(min=0).long()] & (m.kf_mp >= 0), m.kf_mp, -1)
+    return m._replace(mp_valid=keep, kf_mp=kf_mp, obs_mat=m.obs_mat & keep[None, :])
+
+
+def update_point_stats(
+    m: MapArrays, mp_sel: torch.Tensor, n_levels: int = 8, scale_factor: float = 1.2,
+) -> MapArrays:
+    """Re-elect distinctive descriptors and refresh normals and scale ranges
+    of the points in ``mp_sel`` (``ComputeDistinctiveDescriptors`` and
+    ``UpdateNormalAndDepth``).
+
+    The descriptor is the observation minimising the summed Hamming distance
+    to the point's other observations, from per-point bit counts:
+    ``sum_o' ham(a, b_o') = sum(c) + sum_j a_j (n - 2 c_j)``; ties go to the
+    lowest observation row.  Points with fewer than 3 observations keep
+    their descriptor.  All counts are small integers in float32, so the
+    election does not depend on summation order.
+    """
+    KF, NF = m.kf_xy.shape[0], m.kf_xy.shape[1]
+    MP = m.mp_pos.shape[0]
+    dev = m.mp_pos.device
+    k_idx = torch.arange(KF, device=dev).repeat_interleave(NF)
+    mp = m.kf_mp.reshape(-1)
+    mp_c = mp.clamp(min=0).long()
+    row_ok = (mp >= 0) & m.kf_valid[k_idx] & m.kf_feat_valid.reshape(-1)
+    row_ok = row_ok & mp_sel[mp_c] & m.mp_valid[mp_c]
+    seg = torch.where(row_ok, mp_c, MP)  # invalid rows -> scratch segment
+    okf = row_ok.to(torch.float32)
+
+    # one 32-bit word at a time keeps the transient at (KF*NF, 32)
+    desc = m.kf_desc.reshape(KF * NF, 8)
+    shifts = torch.arange(32, dtype=torch.int32, device=dev)
+
+    def word_bits(w):
+        return ((desc[:, w, None] >> shifts) & 1).to(torch.float32)
+
+    n_obs = segment_sum(okf, seg, MP + 1)[:MP]
+    c_words = [segment_sum(word_bits(w) * okf[:, None], seg, MP + 1)[:MP] for w in range(8)]
+    sc = sum(torch.sum(cw, dim=1) for cw in c_words)[mp_c]
+    for w in range(8):
+        sc = sc + torch.sum(word_bits(w) * (n_obs[mp_c, None] - 2.0 * c_words[w][mp_c]), dim=1)
+    inf = torch.tensor(float("inf"), device=dev)
+    sc = torch.where(row_ok, sc, inf)
+    best = torch.full((MP + 1,), float("inf"), device=dev).scatter_reduce_(
+        0, seg, sc, reduce="amin")[:MP]
+    is_best = row_ok & (sc == best[mp_c])
+    big = 1 << 30
+    rows = torch.arange(KF * NF, dtype=torch.int32, device=dev)
+    first = torch.full((MP + 1,), big, dtype=torch.int32, device=dev).scatter_reduce_(
+        0, seg, torch.where(is_best, rows, big), reduce="amin")[:MP]
+    has = (first < big) & (n_obs >= 3)
+    new_desc = desc[first.clamp(0, KF * NF - 1).long()]
+    mp_desc = torch.where(has[:, None], new_desc, m.mp_desc)
+
+    # normal: mean unit vector from each observing keyframe centre
+    centers = -torch.einsum("kji,kj->ki", m.kf_Rcw, m.kf_tcw)  # (KF, 3)
+    vec = m.mp_pos[mp_c] - centers[k_idx]
+    vn = vec / torch.clamp(torch.linalg.vector_norm(vec, dim=-1, keepdim=True), min=1e-9)
+    nsum = segment_sum(vn * okf[:, None], seg, MP + 1)[:MP]
+    nrm = torch.linalg.vector_norm(nsum, dim=-1, keepdim=True)
+    mp_normal = torch.where(has[:, None] & (nrm > 1e-9),
+                            nsum / torch.clamp(nrm, min=1e-9), m.mp_normal)
+
+    # scale-invariance range from the reference keyframe's distance and the
+    # octave it observed the point at; untouched when it no longer does
+    ref = m.mp_ref_kf.long()
+    d_ref = torch.linalg.vector_norm(m.mp_pos - centers[ref], dim=-1)
+    is_ref_row = row_ok & (k_idx == ref[mp_c])
+    zeros = torch.zeros(MP + 1, dtype=torch.int32, device=dev)
+    lvl = zeros.scatter_reduce(
+        0, seg, torch.where(is_ref_row, m.kf_level.reshape(-1), 0), reduce="amax")[:MP]
+    ref_seen = zeros.scatter_reduce(0, seg, is_ref_row.to(torch.int32), reduce="amax")[:MP] > 0
+    sf = scale_factor ** torch.arange(n_levels, dtype=m.mp_pos.dtype, device=dev)
+    dmax = d_ref * sf[lvl.clamp(0, n_levels - 1).long()]
+    dmin = dmax / sf[n_levels - 1]
+    upd = has & m.mp_valid & (d_ref > 1e-6) & ref_seen
+    return m._replace(
+        mp_desc=mp_desc,
+        mp_normal=mp_normal,
+        mp_dmin=torch.where(upd, dmin, m.mp_dmin),
+        mp_dmax=torch.where(upd, dmax, m.mp_dmax),
+    )
+
+
+def cull_keyframes(m: MapArrays, window_mask: torch.Tensor, protect: torch.Tensor,
+                   ratio: float = 0.9) -> MapArrays:
+    """Mark redundant keyframes invalid (``KeyFrameCulling``: at least
+    ``ratio`` of a keyframe's points seen by 3 or more other keyframes).
+
+    ``window_mask`` (KF,): candidates; ``protect`` (KF,): never culled.  All
+    individually redundant keyframes are re-checked against their joint
+    observation loss; when that rejects every one, the single most redundant
+    candidate goes.  Points whose reference keyframe went re-home to their
+    first surviving observer, children of a culled keyframe re-parent to its
+    parent."""
+    MP = m.mp_pos.shape[0]
+    bound = (m.kf_mp >= 0) & m.kf_feat_valid
+    mp_idx = m.kf_mp.clamp(min=0).long()
+    n_bound = torch.sum(bound, dim=1).to(torch.int32)
+    seg = torch.where(bound, mp_idx, MP - 1).reshape(-1)
+
+    def redundancy(nobs):
+        well_observed = nobs[mp_idx] >= 4  # the point survives without this KF
+        n_red = torch.sum(bound & well_observed, dim=1).to(torch.int32)
+        red_ratio = n_red / torch.clamp(n_bound, min=1)
+        return (m.kf_valid & window_mask & ~protect & (n_bound > 20)
+                & (n_red >= ratio * n_bound)), red_ratio
+
+    def lost(which):
+        return segment_sum((bound & which[:, None]).reshape(-1).to(torch.int32), seg, MP)
+
+    cand, red = redundancy(m.mp_nobs)
+    cull_joint, _ = redundancy(m.mp_nobs - lost(cand))
+    cull = cand & cull_joint
+    best = torch.argmax(torch.where(cand, red, -1.0))
+    fallback = torch.zeros_like(cand)
+    fallback[best] = True
+    cull = torch.where(torch.any(cull), cull, fallback & cand)
+    keep = ~cull
+    kf_valid = m.kf_valid & keep
+    obs_mat = m.obs_mat & keep[:, None]
+    ref_dead = ~kf_valid[m.mp_ref_kf.long()]
+    new_ref = torch.argmax(obs_mat.to(torch.uint8), dim=0).to(torch.int32)  # first observer
+    mp_ref_kf = torch.where(ref_dead & torch.any(obs_mat, dim=0), new_ref, m.mp_ref_kf)
+    # pointer-jump a few rounds so a chain of culled ancestors collapses;
+    # a fully culled ancestry becomes a root
+    kf_parent = m.kf_parent
+    for _ in range(4):
+        p_idx = kf_parent.clamp(min=0).long()
+        parent_dead = (kf_parent >= 0) & ~kf_valid[p_idx]
+        kf_parent = torch.where(parent_dead, kf_parent[p_idx], kf_parent)
+    p_idx = kf_parent.clamp(min=0).long()
+    kf_parent = torch.where((kf_parent >= 0) & ~kf_valid[p_idx], -1, kf_parent)
+    return m._replace(
+        kf_valid=kf_valid,
+        mp_nobs=m.mp_nobs - lost(cull),
+        obs_mat=obs_mat,
+        kf_mp=torch.where(cull[:, None], -1, m.kf_mp),
+        mp_ref_kf=mp_ref_kf,
+        kf_parent=kf_parent,
+    )
+
+
+def compact_map_points(m: MapArrays):
+    """Compact valid map points to the front and free the culled slots.
+
+    Returns ``(m, n_valid, inv)``: ``n_valid`` a 0-d int32 tensor, ``inv``
+    mapping old point index -> new point index, -1 for culled slots.  Point
+    bindings computed before the compaction must pass through ``inv``
+    (:func:`remap_point_bindings`) before they touch the compacted map."""
+    MP = m.mp_pos.shape[0]
+    iota = torch.arange(MP, dtype=torch.int32, device=m.mp_pos.device)
+    order_key = torch.where(m.mp_valid, iota, iota + MP)  # valid first, in order
+    perm = torch.sort(order_key, stable=True).indices     # new pos -> old idx
+    inv = torch.zeros(MP, dtype=torch.int32, device=iota.device)
+    inv[perm] = iota                                      # old idx -> new pos
+    inv_safe = torch.where(m.mp_valid, inv, -1)
+    mp_c = m.kf_mp.clamp(min=0).long()
+    bound_valid = (m.kf_mp >= 0) & m.mp_valid[mp_c]
+    m = m._replace(
+        **{f: getattr(m, f)[perm] for f in (
+            "mp_pos", "mp_valid", "mp_desc", "mp_normal", "mp_dmin", "mp_dmax",
+            "mp_ref_kf", "mp_nobs", "mp_visible", "mp_found")},
+        obs_mat=m.obs_mat[:, perm],
+        kf_mp=torch.where(bound_valid, inv[mp_c], -1),
+    )
+    return m, torch.sum(m.mp_valid.to(torch.int32)), inv_safe
+
+
+def remap_point_bindings(mp_of_feat: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """Translate point bindings through a compaction remap (-1 stays -1)."""
+    return torch.where(mp_of_feat >= 0, inv[mp_of_feat.clamp(min=0).long()], -1)
+
+
+def compose_point_remaps(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
+    """Compose two compaction remaps: oldest index -> newest index."""
+    return remap_point_bindings(first, second)

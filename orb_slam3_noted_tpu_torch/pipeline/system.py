@@ -1,19 +1,24 @@
 """SLAM system facades (port of :mod:`orb_slam3_noted_tpu.pipeline.system`).
 
-The slice ported so far is what ``RGBDSLAM`` runs in localisation mode
-(reference ``System::ActivateLocalizationMode`` on an RGB-D camera):
-single-frame initialisation from depth, then per frame ORB extraction,
-local-map projection matching and motion-only pose optimisation against the
-frozen map, with the OK / RECENTLY_LOST / LOST state machine and the
-relative-pose trajectory records.
+``StereoSLAM`` and ``RGBDSLAM`` run frame by frame as full SLAM with loop
+closing off: single-frame initialisation from stereo depth, then per frame
+ORB extraction (both images for stereo, matched by
+:func:`..ops.stereo.match_stereo`), local-map projection matching and
+motion-only pose optimisation, the OK / RECENTLY_LOST / LOST state machine,
+the relative-pose trajectory records, and at every keyframe decision the
+synchronous mapper (:func:`..tracking.insert_keyframe_step`) with slot
+recycling and map-point compaction.  ``set_localization_mode(True)`` freezes
+the map.
 
-Everything else raises ``NotImplementedError`` naming its step in
-ROADMAP.md (next steps): keyframe insertion (1), monocular initialisation
-and batch mode (2), relocalisation and loop closing (3).  Outside
-localisation mode the first keyframe decision therefore raises.
+What is not ported raises ``NotImplementedError`` naming its step in
+ROADMAP.md (next steps): monocular initialisation and batch mode (1),
+relocalisation and loop closing (2).  Without a relocalisation database a
+lost frame stays lost until projection matching recovers.
 
-All state lives on the ``device`` given to the constructor; the host holds
-the scalar counters, the trajectory records (numpy) and the state machine.
+All state lives on the constructor's ``device`` (the CUDA device unless the
+caller names another); the host holds the scalar counters, the trajectory
+records (numpy) and the state machine.  The map-point allocation pointer
+``n_mp`` is a plain int, read back once per keyframe.
 """
 
 from __future__ import annotations
@@ -25,7 +30,9 @@ import torch
 
 from orb_slam3_noted_tpu_torch.geometry import se3
 from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+from orb_slam3_noted_tpu_torch.ops import image as I
 from orb_slam3_noted_tpu_torch.ops import orb as O
+from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
 
@@ -62,14 +69,38 @@ class MonoSLAM:
     """Base facade: map, state machine and trajectory on one device."""
 
     def __init__(self, cfg: SlamConfig, device=None):
+        if cfg.enable_loop_closing:
+            raise _todo("loop closing", 2)
         self.cfg = cfg
         self.cam = cfg.camera
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        # the card unless the caller names another device; no fallback
+        self.device = torch.device("cuda" if device is None else device)
+        self.kf_inserted = 0  # total keyframe insertions (incl. recycled slots)
+        self.trajectory: list[FrameRecord] = []
+        # RECENTLY_LOST holds for ~2 s before the state degrades to LOST
+        self.lost_patience = max(int(2.0 * cfg.fps), 4)
+        # track against the frozen map, never insert keyframes
+        self.localization_only = False
+        self.reset()
+
+    def reset(self):
+        """Full reset (reference ``System::Reset``): drop map and state; the
+        trajectory records stay."""
+        cfg = self.cfg
         self.m = MS.empty_map(cfg, device=self.device)
         self.n_kf = 0
-        self._n_mp = 0
-        self.free_kf_slots: list[int] = []
+        self.n_mp = 0  # map-point allocation pointer
+        # composed old->new point-index map of every compaction since the
+        # last track call; bindings from that call pass through it before
+        # they touch the map
+        self._mp_remap = None
+        # host mirror of keyframe frame ids (-1 = empty slot)
         self.kf_frame_ids = np.full(cfg.max_keyframes, -1, np.int64)
+        # recycled keyframe slots, refilled from kf_valid when the monotone
+        # allocator is exhausted
+        self.free_kf_slots: list[int] = []
+        self._dead_slots: set[int] = set()  # culled slots already fixed up
+        self._refill_cooldown = 0
         self.state = NOT_INITIALIZED
         self.vel = None  # relative motion (R, t): Tcw_k = vel o Tcw_{k-1}
         self.last_Rcw = torch.eye(3, dtype=torch.float32, device=self.device)
@@ -77,31 +108,85 @@ class MonoSLAM:
         self.last_kf_slot = 0
         self.frames_since_kf = 0
         self.tracked_at_kf = 0
-        self.trajectory: list[FrameRecord] = []
-        # the relocalisation database and the loop closer are built at
-        # keyframe insertion, which is not ported: both stay None
+        self.lost_frames = 0
+        # built by the relocalisation and loop-closing slice: both stay None
         self.loop_closer = None
         self.reloc_db = None
-        # RECENTLY_LOST holds for ~2 s before the state degrades to LOST
-        self.lost_frames = 0
-        self.lost_patience = max(int(2.0 * cfg.fps), 4)
-        # track against the frozen map, never insert keyframes
-        self.localization_only = False
 
     # ------------------------------------------------------------------
-    @property
-    def n_mp(self) -> int:
-        return self._n_mp
+    def _refill_free_slots(self, kf_valid: np.ndarray):
+        """Recompute the recycled-slot list from a fresh ``kf_valid`` pull.
 
-    @n_mp.setter
-    def n_mp(self, v):
-        self._n_mp = int(v)
+        Before a slot may be recycled, every trajectory record anchored to
+        it is re-anchored to the culled keyframe's spanning-tree parent
+        (``SaveTrajectoryTUM``'s walk): rel' = rel o T_dead o T_parent^-1
+        keeps the record relative to a live keyframe, so it still follows
+        every later refinement.  Records whose culled reference has no live
+        parent fall back to an absolute pose."""
+        kf_valid = np.asarray(kf_valid)
+        dead = np.flatnonzero(~kf_valid[: self.n_kf])
+        newly_dead = [
+            int(s) for s in dead if s != self.last_kf_slot and int(s) not in self._dead_slots
+        ]
+        if newly_dead:
+            refs = {r.ref_slot for r in self.trajectory if r.ref_slot >= 0}
+            fixup = [s for s in newly_dead if s in refs]
+            if fixup:
+                sl = torch.tensor(fixup, device=self.device)
+                par_t = self.m.kf_parent[sl]
+                psl = par_t.clamp(min=0).long()
+                Rk, tk, par, Rp, tp = (_np(x) for x in (
+                    self.m.kf_Rcw[sl], self.m.kf_tcw[sl], par_t,
+                    self.m.kf_Rcw[psl], self.m.kf_tcw[psl],
+                ))
+                info = {s: (Rk[k], tk[k], int(par[k]), Rp[k], tp[k]) for k, s in enumerate(fixup)}
+                for r in self.trajectory:
+                    if r.ref_slot in info:
+                        Rr, tr, p, Rpp, tpp = info[r.ref_slot]
+                        if p >= 0 and kf_valid[p]:
+                            A_R = Rr @ Rpp.T  # T_dead o T_parent^-1
+                            A_t = tr - A_R @ tpp
+                            r.rel_t = r.rel_R @ A_t + r.rel_t
+                            r.rel_R = r.rel_R @ A_R
+                            r.ref_slot = p
+                        else:
+                            r.Rcw = r.rel_R @ Rr
+                            r.tcw = r.rel_R @ tr + r.rel_t
+                            r.ref_slot = -1
+                            r.rel_R = r.rel_t = None
+            self._dead_slots.update(newly_dead)
+        self.free_kf_slots = [int(s) for s in dead if s != self.last_kf_slot]
 
-    # ------------------------------------------------------------------
+    def _alloc_kf_slot(self):
+        """Next keyframe slot: fresh while capacity lasts, else recycled."""
+        if self.n_kf < self.cfg.max_keyframes:
+            slot = self.n_kf
+            self.n_kf += 1
+            return slot
+        if self.free_kf_slots:
+            slot = self.free_kf_slots.pop(0)
+            self._dead_slots.discard(slot)  # the slot gets a new occupant
+            return slot
+        return None
+
     def _can_insert_kf(self) -> bool:
         if self.n_kf < self.cfg.max_keyframes or self.free_kf_slots:
             return True
-        raise _todo("keyframe culling at capacity", 1)
+        # at capacity with no known-free slot: the mapper pass (which culls)
+        # cannot run, so cull explicitly and refresh liveness, at most every
+        # ~8 frames
+        if self._refill_cooldown <= 0:
+            self._refill_cooldown = 8
+            slot = self.last_kf_slot
+            _, kf_mask = MS.local_map_mask(self.m, slot, n_neighbors=self.cfg.local_window)
+            protect = torch.zeros(self.cfg.max_keyframes, dtype=torch.bool, device=self.device)
+            protect[slot] = True
+            protect[0] = True
+            self.m = MS.cull_keyframes(self.m, kf_mask, protect)
+            self._refill_free_slots(_np(self.m.kf_valid))
+            return bool(self.free_kf_slots)
+        self._refill_cooldown -= 1
+        return False
 
     def _need_new_kf(self, n_inl: int, tracked_close=None, nontracked_close=None) -> bool:
         """``Tracking::NeedNewKeyFrame`` policy (c1a/c1b/c1c and c2, with the
@@ -135,34 +220,68 @@ class MonoSLAM:
 
     # ------------------------------------------------------------------
     def process(self, img, frame_id: int):
-        raise _todo("monocular initialisation and tracking", 2)
+        raise _todo("monocular initialisation and tracking", 1)
 
     def process_batch(self, imgs, frame_ids):
-        raise _todo("batch (throughput) mode", 2)
+        raise _todo("batch (throughput) mode", 1)
 
     def _try_initialize(self, feats, frame_id):
-        raise _todo("monocular two-view initialisation", 2)
-
-    def _insert_keyframe(self, *args, **kwargs):
-        raise _todo("keyframe insertion", 1)
-
-    def _maybe_close_loop(self, slot, feats):
-        raise _todo("loop closing", 3)
+        raise _todo("monocular two-view initialisation", 1)
 
     def _try_relocalize(self, feats, frame_id):
         """None while no relocalisation database exists (the only case the
-        ported slice reaches); querying one is not ported."""
+        ported slices reach); querying one is not ported."""
         if self.reloc_db is None and self.loop_closer is None:
             return None
-        raise _todo("relocalisation", 3)
+        raise _todo("relocalisation", 2)
+
+    def _insert_keyframe(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
+                         uvr=None, depth=None):
+        """The whole mapper pass for a new keyframe
+        (:func:`..tracking.insert_keyframe_step`); the host reads back the
+        new allocation pointer."""
+        cfg = self.cfg
+        slot = self._alloc_kf_slot()
+        if slot is None:
+            return  # at capacity with no culled slot to recycle
+        self.kf_inserted += 1
+        NF = cfg.n_features
+        none = lambda: torch.full((NF,), -1.0, dtype=torch.float32, device=self.device)
+        # bindings from a track call made before an earlier compaction still
+        # carry old point indices
+        if self._mp_remap is not None:
+            mp_of_feat = MS.remap_point_bindings(mp_of_feat, self._mp_remap)
+        # free-list half of the map-point lifecycle: compact culled slots
+        # away before the allocator runs out
+        if self.n_mp > 0.85 * cfg.max_map_points:
+            self.m, n_valid, inv = MS.compact_map_points(self.m)
+            self.n_mp = int(n_valid)
+            mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
+            self._mp_remap = inv if self._mp_remap is None else (
+                MS.compose_point_remaps(self._mp_remap, inv)
+            )
+        self.m, n_mp = T.insert_keyframe_step(
+            self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
+            uvr if uvr is not None else none(), depth if depth is not None else none(),
+            self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors,
+            bf=cfg.bf, has_depth=depth is not None,
+        )
+        self.n_mp = int(n_mp)
+        self.kf_frame_ids[slot] = int(frame_id)
+        self.last_kf_slot = slot
+        self.frames_since_kf = 0
+        self.tracked_at_kf = max(n_inl, 1)
 
     # ------------------------------------------------------------------
-    def _extract(self, img: torch.Tensor) -> O.FrameFeatures:
+    def _orb_args(self) -> dict:
         cfg = self.cfg
-        return O.extract_orb(
-            img, n_features=cfg.n_features, n_levels=cfg.n_levels,
-            scale_factor=cfg.scale_factor, th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast,
+        return dict(
+            n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+            th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast,
         )
+
+    def _extract(self, img: torch.Tensor) -> O.FrameFeatures:
+        return O.extract_orb(img, **self._orb_args())
 
     def _track(self, feats, frame_id, uvr=None, depth=None):
         cfg = self.cfg
@@ -175,6 +294,7 @@ class MonoSLAM:
         Rcw, tcw, n_inl, mp_of_feat, vis, found = T.track_frame(
             self.m, feats, Rp, tp, mp_mask, self.cam, cfg, feat_uvr=uvr, bf=cfg.bf,
         )
+        self._mp_remap = None  # fresh bindings against the current map
         self.m = self.m._replace(
             mp_visible=self.m.mp_visible + vis.to(torch.int32),
             mp_found=self.m.mp_found + found.to(torch.int32),
@@ -261,14 +381,38 @@ class MonoSLAM:
 
 
 class StereoSLAM(MonoSLAM):
-    """Stereo-backed facade: single-frame initialisation from depth and
-    3-row stereo observations.  The stereo matcher (kernel K4) waits for the
-    stereo slice (ROADMAP.md, next steps 4)."""
+    """Stereo SLAM: rectified pair in, metric-scale map out.
+
+    Against the monocular base: initialisation from a single frame's stereo
+    depth (``Tracking::StereoInitialization``), 3-row stereo observations in
+    pose optimisation and local BA, and new map points created directly
+    from depth at keyframe insertion."""
 
     MIN_INIT_POINTS = 300  # reference requires 500 stereo points at init
 
     def process(self, img_left, img_right, frame_id: int):
-        raise _todo("stereo matching (kernel K4)", 4)
+        """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
+        cfg = self.cfg
+        kw = self._orb_args()
+        # each pyramid is built once and shared by extraction and matching
+        pyrs, feats_lr = [], []
+        for img in (img_left, img_right):
+            im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
+            pyrs.append(tuple(I.build_pyramid(im, cfg.n_levels, cfg.scale_factor)))
+            feats_lr.append(O.extract_from_pyramid(pyrs[-1], **kw))
+        feats = feats_lr[0]
+        sm = match_stereo(
+            feats, feats_lr[1], pyrs[0], pyrs[1], bf=cfg.bf, baseline=cfg.bf / self.cam.fx,
+            n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+        )
+        uvr = torch.where(sm.valid, sm.u_right, -1.0)
+        depth = torch.where(sm.valid, sm.depth, -1.0)
+
+        if self.state == NOT_INITIALIZED:
+            self._stereo_initialize(feats, frame_id, uvr, depth)
+        else:
+            self._track(feats, frame_id, uvr=uvr, depth=depth)
+        return self.trajectory[-1] if self.trajectory else None
 
     def _stereo_initialize(self, feats, frame_id, uvr, depth):
         cfg = self.cfg

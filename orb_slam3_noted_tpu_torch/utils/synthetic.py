@@ -9,7 +9,7 @@ geometry keeps two-view initialization well-conditioned.
 
 Pure numpy (host-side test harness); only the pose helpers call the port's
 ``so3`` on CPU float32 tensors, as the JAX package calls its own.  The
-Kannala-Brandt renderer waits for the fisheye slice (ROADMAP, next steps 6).
+Kannala-Brandt renderer waits for the fisheye slice (ROADMAP, next steps 4).
 """
 
 from __future__ import annotations

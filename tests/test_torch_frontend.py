@@ -23,9 +23,14 @@ W, H, NF = 320, 240, 600
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_float32():
-    prev = jax.config.jax_enable_x64
+    """JAX in float32 as in use; torch on one thread: the test workers run
+    side by side, and the port's many small operations only lose to threads
+    that fight over the same cores."""
+    prev, threads = jax.config.jax_enable_x64, torch.get_num_threads()
     jax.config.update("jax_enable_x64", False)
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     jax.config.update("jax_enable_x64", prev)
 
 

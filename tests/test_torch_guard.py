@@ -1,9 +1,15 @@
-"""Guards of the PyTorch port: it imports without JAX, and ``chip_smoke.py``
-refuses to run (and prints no result) where there is no GPU."""
+"""Guards of the PyTorch port: it imports without JAX, its entry points
+default to the CUDA device, nothing in it asks whether a GPU is there or
+catches a failed launch, and ``chip_smoke.py`` refuses to run (and prints
+no result) where there is no GPU."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,6 +47,74 @@ def test_port_imports_without_jax():
     )
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip().splitlines()[-1]) >= 20  # every module imported
+
+
+def _sources(*parts):
+    pattern = os.path.join(ROOT, "orb_slam3_noted_tpu_torch", *parts)
+    files = sorted(glob.glob(pattern, recursive=True))
+    assert files, pattern
+    return files
+
+
+def test_port_names_neither_jax_nor_the_jax_package():
+    """Every module of the port and ``chip_smoke.py``, by their import
+    statements (the stereo matcher, the mapper and the windowed BA included)."""
+    files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py")]
+    assert {"stereo.py", "triangulation.py", "window_ba.py"} <= {os.path.basename(f) for f in files}
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                root = n.split(".")[0]
+                assert root not in ("jax", "jaxlib", "orb_slam3_noted_tpu"), (path, n)
+
+
+def test_port_never_asks_for_a_gpu_or_catches_a_launch():
+    """Dispatch is by the tensor's device alone: no module of the port asks
+    ``is_available``, and no module under ``ops/`` (the kernel wrappers and
+    their callers) holds a ``try`` that could fall back from a failed build
+    or launch to the plain version."""
+    for path in _sources("**", "*.py"):
+        with open(path) as f:
+            src = f.read()
+        assert "is_available" not in src, path
+    for path in _sources("ops", "*.py"):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
+
+
+@pytest.mark.parametrize("facade", ["MonoSLAM", "StereoSLAM", "RGBDSLAM"])
+def test_facades_default_to_the_cuda_device(facade, monkeypatch):
+    """Without a ``device`` the state goes to ``cuda``, whether or not a
+    card is present: the allocation is intercepted before it happens."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import map_state, system
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def empty_map(cfg, device=None):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(map_state, "empty_map", empty_map)
+    with pytest.raises(Stop):
+        getattr(system, facade)(SlamConfig(enable_loop_closing=False))
+    assert seen == [torch.device("cuda")]
+    with pytest.raises(Stop):
+        getattr(system, facade)(SlamConfig(enable_loop_closing=False), device="cpu")
+    assert seen[1] == torch.device("cpu")
 
 
 def test_chip_smoke_fails_without_gpu():

@@ -41,9 +41,14 @@ _jic_angles = jax.jit(jorb.ic_angles)
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_float32():
-    prev = jax.config.jax_enable_x64
+    """JAX in float32 as in use; torch on one thread: the test workers run
+    side by side, and the port's many small operations only lose to threads
+    that fight over the same cores."""
+    prev, threads = jax.config.jax_enable_x64, torch.get_num_threads()
     jax.config.update("jax_enable_x64", False)
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     jax.config.update("jax_enable_x64", prev)
 
 
@@ -149,7 +154,12 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(jax_levels):
     zeros = torch.zeros((4, 512), dtype=torch.int32)
     ck.brief_sample(blur, zeros, zeros)
     torb.extract_orb(lv, n_features=300)
-    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0}
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+    sads = ck.sad_stereo(lv, blur, i32(20, 30), i32(40, 50), i32(35, 48), i32(0, 0),
+                         i32(0), i32(lv.shape[0]), i32(lv.shape[1]))
+    assert sads.shape == (2, 11)
+    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0,
+                                  "sad_stereo": 0}
 
 
 def test_build_dir_is_gitignored():
@@ -162,5 +172,5 @@ def test_build_dir_is_gitignored():
     assert rel in ignored
     assert ck.library_path().parent == ck.BUILD_DIR
     assert sorted(p.name for p in ck.CSRC.glob("*.cu")) == [
-        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu"
+        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu", "sad_stereo.cu"
     ]

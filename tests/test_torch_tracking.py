@@ -7,6 +7,8 @@ States cross between the packages as dicts of numpy arrays
 views.  The scratch map-point slot MP-1 is never compared.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,9 +44,14 @@ INLIER_TOL = 5
 
 @pytest.fixture(autouse=True, scope="module")
 def _jax_float32():
-    prev = jax.config.jax_enable_x64
+    """JAX in float32 as in use; torch on one thread: the test workers run
+    side by side, and the port's many small operations only lose to threads
+    that fight over the same cores."""
+    prev, threads = jax.config.jax_enable_x64, torch.get_num_threads()
     jax.config.update("jax_enable_x64", False)
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     jax.config.update("jax_enable_x64", prev)
 
 
@@ -218,27 +225,27 @@ def test_rgbd_localization_slice(laps, frames):
     mt, mj = tms.to_numpy(ts.m), jax.device_get(js.m)._asdict()
     for k in ("mp_visible", "mp_found"):
         assert (mt[k][:-1] == np.asarray(mj[k])[:-1]).mean() >= 0.97, k
-    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0}
+    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0,
+                                  "sad_stereo": 0}
 
 
 def test_unported_paths_raise(frames):
+    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM, StereoSLAM
+
     ts = _torch_slam()
-    ts.set_localization_mode(False)
+    cpu = torch.device("cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ts.process_batch([frames[0][0]], [0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts._insert_keyframe()
-    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM, StereoSLAM
-
+        MonoSLAM(ts.cfg, device=cpu).process(frames[0][0], 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonoSLAM(ts.cfg).process(frames[0][0], 0)
+        MonoSLAM(ts.cfg, device=cpu)._try_initialize(None, 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StereoSLAM(ts.cfg).process(frames[0][0], frames[0][0], 0)
-    # outside localisation mode the first keyframe decision reaches the
-    # unported keyframe insertion
+        StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True), device=cpu)
+    # a relocalisation database would be queried by code that is not ported
+    ts.reloc_db = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        for i, (img, depth) in enumerate(frames):
-            ts.process(img, depth, i)
+        ts._try_relocalize(None, 0)
 
 
 def test_stereo_points_from_depth(laps, frames):
