@@ -11,6 +11,8 @@ from dataclasses import dataclass
 
 import torch
 
+from orb_slam3_noted_tpu_torch.utils.interop import const_tensor
+
 PINHOLE = 0
 KANNALA_BRANDT8 = 1
 
@@ -44,7 +46,8 @@ class Camera:
         return self.params[3]
 
     def params_array(self, dtype=torch.float32, device=None) -> torch.Tensor:
-        return torch.tensor(self.params, dtype=dtype, device=device)
+        """The parameters on ``device``: one shared read-only tensor."""
+        return const_tensor(tuple(self.params), dtype, torch.device("cpu" if device is None else device))
 
 
 def pinhole_project(params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

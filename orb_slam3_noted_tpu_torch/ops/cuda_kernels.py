@@ -13,6 +13,11 @@ wrapper                   CUDA source (``csrc/``)          plain version
 :func:`sad_stereo`        ``sad_stereo.cu``                :func:`sad_stereo_plain`
 ========================  ==============================  =======================
 
+K2 and K3 work on a pyramid atlas (:class:`..image.PyramidAtlas`: the levels
+of one pyramid stacked along the rows of one image) and take its level
+sizes as host integers, so one launch serves every level of every image of
+a batch; a single image is the one-level atlas.
+
 Dispatch is by the tensor's device: a CPU tensor goes to the plain version,
 a CUDA tensor launches the kernel, or raises if the build or the launch
 fails.  There is no fallback from the card to the plain version.  Each
@@ -36,10 +41,12 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
 from orb_slam3_noted_tpu_torch.ops import image as image_ops
+from orb_slam3_noted_tpu_torch.ops.orb_pattern import BIT_PATTERN_31
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -70,7 +77,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Path of the shared library for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the header they share
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liborb_kernels_{h.hexdigest()[:16]}.so"
@@ -105,29 +112,33 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.orb_fast_score.argtypes = [p, p, i, i, i, p]
-    lib.orb_gaussian_blur7.argtypes = [p, p, p, i, i, i, p]
-    lib.orb_brief_sample.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.orb_gaussian_blur7.argtypes = [p, p, p, i, i, i, i, p, p]
+    lib.orb_brief_set_pattern.argtypes = [p]
+    lib.orb_brief_sample.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
     lib.orb_sad_stereo.argtypes = [p] * 10 + [i] * 5 + [p]
-    for fn in (lib.orb_fast_score, lib.orb_gaussian_blur7, lib.orb_brief_sample,
-               lib.orb_sad_stereo):
+    for fn in (lib.orb_fast_score, lib.orb_gaussian_blur7, lib.orb_brief_set_pattern,
+               lib.orb_brief_sample, lib.orb_sad_stereo):
         fn.restype = ctypes.c_int
     return lib
 
 
 def _on_card(x: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raises for any other."""
-    if x.device.type == "cuda":
+    kind = x.device.type
+    if kind == "cuda":
         return True
-    if x.device.type == "cpu":
+    if kind == "cpu":
         return False
     raise ValueError(f"{name}: unsupported device {x.device}")
 
 
-def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: tuple, device=None):
+def _check(x: torch.Tensor, name: str, dtype: torch.dtype, lo: int, hi: int, device=None):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``lo`` to
+    ``hi`` dimensions (on ``device``, where one is given)."""
     if x.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
-    if x.dim() not in ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(x.shape)}")
+    if not lo <= x.dim() <= hi:
+        raise ValueError(f"{name}: expected {lo}-{hi} dims, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     if device is not None and x.device != device:
@@ -135,15 +146,34 @@ def _check(x: torch.Tensor, name: str, dtype: torch.dtype, ndim: tuple, device=N
 
 
 def _launch(fn, name: str, device: torch.device, *args):
-    """Run a C entry on ``device``'s current stream; raise on its error code."""
-    with torch.cuda.device(device):
-        err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    """Run a C entry on ``device``'s current stream; raise on its error code.
+    Pointers and the stream go in as plain integers (the entries' argtypes
+    convert them)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+MAX_LEVELS = 16  # kMaxLevels of csrc/atlas_levels.cuh
+
+
+@functools.lru_cache(maxsize=64)
+def _level_sizes(sizes: tuple, H: int, W: int, min_side: int):
+    """The ``(h_l, w_l)`` pairs of an atlas as the C array the entries read,
+    checked once per (sizes, atlas shape): the levels fill the ``H`` rows
+    and fit the ``W`` columns."""
+    if not 1 <= len(sizes) <= MAX_LEVELS:
+        raise ValueError(f"atlas: {len(sizes)} levels, supported 1 to {MAX_LEVELS}")
+    if sum(h for h, _ in sizes) != H or any(w > W for _, w in sizes):
+        raise ValueError(f"atlas: levels {sizes} do not fit an image of {H} x {W}")
+    if any(min(h, w) < min_side for h, w in sizes):
+        raise ValueError(f"atlas: every level needs h, w >= {min_side}, got {sizes}")
+    return (ctypes.c_int * (2 * len(sizes)))(*(int(v) for hw in sizes for v in hw))
 
 
 # ---------------------------------------------------------------------------
@@ -157,11 +187,12 @@ def fast_score(img: torch.Tensor) -> torch.Tensor:
     """FAST-9/16 score map of (H, W) or (B, H, W) float32 images."""
     if not _on_card(img, "fast_score"):
         return fast_score_plain(img)
-    _check(img, "fast_score", torch.float32, (2, 3))
+    _check(img, "fast_score", torch.float32, 2, 3)
     x = img if img.dim() == 3 else img[None]
     B, H, W = x.shape
     out = torch.empty_like(x)
-    _launch(_library().orb_fast_score, "fast_score", x.device, _ptr(x), _ptr(out), B, H, W)
+    _launch(_library().orb_fast_score, "fast_score", x.device,
+            x.data_ptr(), out.data_ptr(), B, H, W)
     fast_score.launches += 1
     return out if img.dim() == 3 else out[0]
 
@@ -170,14 +201,21 @@ fast_score.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2: 7-tap Gaussian blur, sigma 2, reflect-101 edges
+# K2: 7-tap Gaussian blur, sigma 2, reflect-101 edges, over an atlas
 # ---------------------------------------------------------------------------
 
 BLUR_SIGMA = 2.0
 
 
-def gaussian_blur7_plain(img: torch.Tensor) -> torch.Tensor:
-    return image_ops.gaussian_blur(img, 7, BLUR_SIGMA)
+def gaussian_blur7_plain(img: torch.Tensor, sizes: tuple | None = None) -> torch.Tensor:
+    """:func:`..image.gaussian_blur` of the image, or of each level's window
+    of an atlas with these level ``sizes`` (zero outside the windows)."""
+    if sizes is None:
+        return image_ops.gaussian_blur(img, 7, BLUR_SIGMA)
+    out = torch.zeros_like(img)
+    for src, dst in zip(image_ops.level_views(img, sizes), image_ops.level_views(out, sizes)):
+        dst.copy_(image_ops.gaussian_blur(src, 7, BLUR_SIGMA))
+    return out
 
 
 @functools.lru_cache(maxsize=8)
@@ -185,19 +223,26 @@ def _blur_taps(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(image_ops.gaussian_kernel1d(7, BLUR_SIGMA)).to(device)
 
 
-def gaussian_blur7(img: torch.Tensor) -> torch.Tensor:
-    """7x7 separable Gaussian blur (sigma 2) of (H, W) or (B, H, W) float32."""
+def gaussian_blur7(img: torch.Tensor, sizes: tuple | None = None) -> torch.Tensor:
+    """7x7 separable Gaussian blur (sigma 2) of (H, W) or (B, H, W) float32.
+
+    With ``sizes = ((h_0, w_0), ...)`` the image is a pyramid atlas and each
+    level is blurred inside its own window, reflecting at the window's
+    edges; on the card the columns right of a level's ``w_l`` are left
+    unwritten (the plain version zeroes them)."""
     if not _on_card(img, "gaussian_blur7"):
-        return gaussian_blur7_plain(img)
-    _check(img, "gaussian_blur7", torch.float32, (2, 3))
+        return gaussian_blur7_plain(img, sizes)
+    _check(img, "gaussian_blur7", torch.float32, 2, 3)
     x = img if img.dim() == 3 else img[None]
     B, H, W = x.shape
-    if H < 4 or W < 4:
-        raise ValueError("gaussian_blur7: reflect-101 needs H, W >= 4")
+    # reflect-101 over 3 px needs 4
+    hw = _level_sizes(((H, W),) if sizes is None else sizes, H, W, 4)
     out = torch.empty_like(x)
-    _launch(_library().orb_gaussian_blur7, "gaussian_blur7", x.device,
-            _ptr(x), _ptr(_blur_taps(x.device)), _ptr(out), B, H, W)
-    gaussian_blur7.launches += 1
+    if B:
+        _launch(_library().orb_gaussian_blur7, "gaussian_blur7", x.device,
+                x.data_ptr(), _blur_taps(x.device).data_ptr(), out.data_ptr(),
+                B, H, W, len(hw) // 2, hw)
+        gaussian_blur7.launches += 1
     return out if img.dim() == 3 else out[0]
 
 
@@ -205,14 +250,57 @@ gaussian_blur7.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3: rBRIEF sampling
+# K3: rBRIEF over an atlas, pattern rotation inside the sampler
 # ---------------------------------------------------------------------------
+
+# Pattern points as float (x, y): the 256 first points, then the 256 second.
+PATTERN_XY = np.ascontiguousarray(
+    np.concatenate([BIT_PATTERN_31[:, 0:2], BIT_PATTERN_31[:, 2:4]], 0).astype(np.float32)
+)  # (512, 2)
+
+
+@functools.lru_cache(maxsize=8)
+def _pattern_on(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(PATTERN_XY).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _upload_pattern(index: int) -> bool:
+    """Fill device ``index``'s ``__constant__`` pattern table, once."""
+    with torch.cuda.device(index):
+        err = _library().orb_brief_set_pattern(PATTERN_XY.ctypes.data)
+    if err != 0:
+        raise RuntimeError(f"brief_sample: pattern upload failed with cudaError {err}")
+    return True
+
 
 def _pack_words(bits: torch.Tensor) -> torch.Tensor:
     """(..., 256) bool -> (..., 8) int32; bit b of word w is pair 32w + b."""
     shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
     words = torch.sum(bits.reshape(*bits.shape[:-1], 8, 32).to(torch.int64) << shifts, dim=-1)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def rotated_pattern(angle: torch.Tensor):
+    """(rx, ry) int32 (..., K, 512): the pattern rotated by each keypoint's
+    angle and rounded half to even (``orb.py`` of the JAX package, ahead of
+    its sampler)."""
+    a = torch.cos(angle)[..., None]
+    b = torch.sin(angle)[..., None]
+    pall = _pattern_on(angle.device)
+    px, py = pall[:, 0], pall[:, 1]
+    rx = torch.round(px * a - py * b).to(torch.int32)
+    ry = torch.round(px * b + py * a).to(torch.int32)
+    return rx, ry
+
+
+def brief_coords(h: int, w: int, xy: torch.Tensor, angle: torch.Tensor):
+    """(gy, gx) int32 (..., K, 512): the rotated pattern offset to each
+    keypoint ``xy`` (..., K, 2) and clipped to the (h, w) level."""
+    rx, ry = rotated_pattern(angle)
+    gx = torch.clamp(xy[..., 0:1].to(torch.int32) + rx, 0, w - 1)
+    gy = torch.clamp(xy[..., 1:2].to(torch.int32) + ry, 0, h - 1)
+    return gy.contiguous(), gx.contiguous()
 
 
 def brief_sample_plain(img_blur: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
@@ -225,31 +313,52 @@ def brief_sample_plain(img_blur: torch.Tensor, gy: torch.Tensor, gx: torch.Tenso
     return _pack_words(vals[..., :256] < vals[..., 256:])
 
 
-def brief_sample(img_blur: torch.Tensor, gy: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
-    """(K, 8) int32 rBRIEF words of a blurred (H, W) level from (K, 512)
-    int32 sample coordinates; or (B, K, 8) from (B, H, W) and (B, K, 512)."""
-    if not _on_card(img_blur, "brief_sample"):
-        return brief_sample_plain(img_blur, gy, gx)
-    _check(img_blur, "brief_sample", torch.float32, (2, 3))
-    nd = img_blur.dim()  # coordinates carry the same batch dims
-    for t, n in ((gy, "gy"), (gx, "gx")):
-        _check(t, f"brief_sample {n}", torch.int32, (nd,), img_blur.device)
-    if gy.shape != gx.shape or gy.shape[-1] != 512 or gy.shape[:-2] != img_blur.shape[:-2]:
+def brief_sample_atlas_plain(atlas_blur, sizes, xy, angle, level) -> torch.Tensor:
+    """:func:`brief_coords` of every keypoint at its own level's (h, w),
+    then :func:`brief_sample_plain`'s gather on that level's window of the
+    atlas; (..., HA, W0) with (..., N, 2), (..., N), (..., N) -> (..., N, 8)."""
+    off_t, h_t, w_t = image_ops.level_tables(sizes, atlas_blur.device)
+    lv = torch.clamp(level.long(), 0, len(sizes) - 1)
+    rx, ry = rotated_pattern(angle)
+    zero = torch.zeros((), dtype=torch.int32, device=atlas_blur.device)
+    gx = torch.clamp(xy[..., 0:1] + rx, zero, w_t[lv][..., None] - 1)
+    gy = torch.clamp(xy[..., 1:2] + ry, zero, h_t[lv][..., None] - 1) + off_t[lv][..., None]
+    return brief_sample_plain(atlas_blur, gy, gx)
+
+
+def brief_sample(atlas_blur, sizes, xy, angle, level) -> torch.Tensor:
+    """(N, 8) int32 rBRIEF words of N keypoints on a blurred (HA, W0) pyramid
+    atlas with level ``sizes``: ``xy`` (N, 2) int32 coordinates at the
+    keypoint's own level, ``angle`` (N,) float32 radians, ``level`` (N,)
+    int32; or (B, N, 8) from (B, HA, W0), (B, N, 2), (B, N), (B, N).  The
+    pattern is rotated by the angle, rounded, offset and clipped to the
+    level inside the kernel."""
+    if not _on_card(atlas_blur, "brief_sample"):
+        return brief_sample_atlas_plain(atlas_blur, sizes, xy, angle, level)
+    _check(atlas_blur, "brief_sample", torch.float32, 2, 3)
+    nd = atlas_blur.dim()  # keypoints carry the same batch dims
+    dev = atlas_blur.device
+    _check(xy, "brief_sample xy", torch.int32, nd, nd, dev)
+    _check(angle, "brief_sample angle", torch.float32, nd - 1, nd - 1, dev)
+    _check(level, "brief_sample level", torch.int32, nd - 1, nd - 1, dev)
+    if (xy.shape[-1] != 2 or xy.shape[:-1] != angle.shape or level.shape != angle.shape
+            or angle.shape[:-1] != atlas_blur.shape[:-2]):
         raise ValueError(
-            f"brief_sample: coordinates {tuple(gy.shape)}/{tuple(gx.shape)} do not "
-            f"fit image {tuple(img_blur.shape)}"
+            f"brief_sample: keypoints {tuple(xy.shape)}/{tuple(angle.shape)}/"
+            f"{tuple(level.shape)} do not fit atlas {tuple(atlas_blur.shape)}"
         )
-    x = img_blur if nd == 3 else img_blur[None]
-    cy = gy if nd == 3 else gy[None]
-    cx = gx if nd == 3 else gx[None]
-    B, H, W = x.shape
-    K = cy.shape[1]
-    out = torch.empty((B, K, 8), dtype=torch.int32, device=x.device)
-    if K:
-        _launch(_library().orb_brief_sample, "brief_sample", x.device,
-                _ptr(x), _ptr(cy), _ptr(cx), _ptr(out), B, K, H, W)
+    B = atlas_blur.shape[0] if nd == 3 else 1
+    HA, W = atlas_blur.shape[-2:]
+    N = angle.shape[-1]
+    hw = _level_sizes(sizes, HA, W, 1)
+    out = torch.empty((*angle.shape, 8), dtype=torch.int32, device=dev)
+    if N and B:
+        _upload_pattern(dev.index)
+        _launch(_library().orb_brief_sample, "brief_sample", dev,
+                atlas_blur.data_ptr(), xy.data_ptr(), angle.data_ptr(), level.data_ptr(),
+                out.data_ptr(), B, N, HA, W, len(hw) // 2, hw)
         brief_sample.launches += 1
-    return out if nd == 3 else out[0]
+    return out
 
 
 brief_sample.launches = 0
@@ -304,18 +413,18 @@ def sad_stereo(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Ten
     (B, K)."""
     if not _on_card(atlas_l, "sad_stereo"):
         return sad_stereo_plain(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t)
-    _check(atlas_l, "sad_stereo atlas_l", torch.float32, (2, 3))
+    _check(atlas_l, "sad_stereo atlas_l", torch.float32, 2, 3)
     nd = atlas_l.dim()
     dev = atlas_l.device
-    _check(atlas_r, "sad_stereo atlas_r", torch.float32, (nd,), dev)
+    _check(atlas_r, "sad_stereo atlas_r", torch.float32, nd, nd, dev)
     if atlas_r.shape != atlas_l.shape:
         raise ValueError(f"sad_stereo: atlases {tuple(atlas_l.shape)} and {tuple(atlas_r.shape)}")
     for t, n in ((cv, "cv"), (cu, "cu"), (cur, "cur"), (lvl, "lvl")):
-        _check(t, f"sad_stereo {n}", torch.int32, (nd - 1,), dev)
+        _check(t, f"sad_stereo {n}", torch.int32, nd - 1, nd - 1, dev)
         if t.shape != cv.shape or t.shape[:-1] != atlas_l.shape[:-2]:
             raise ValueError(f"sad_stereo {n}: shape {tuple(t.shape)} does not fit")
     for t, n in ((off_t, "off_t"), (h_t, "h_t"), (w_t, "w_t")):
-        _check(t, f"sad_stereo {n}", torch.int32, (1,), dev)
+        _check(t, f"sad_stereo {n}", torch.int32, 1, 1, dev)
         if t.shape != off_t.shape:
             raise ValueError(f"sad_stereo {n}: {tuple(t.shape)} levels, expected {tuple(off_t.shape)}")
     B = atlas_l.shape[0] if nd == 3 else 1
@@ -324,8 +433,9 @@ def sad_stereo(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Ten
     out = torch.empty((*cv.shape, SAD_SHIFTS), dtype=torch.float32, device=dev)
     if K and off_t.shape[0]:
         _launch(_library().orb_sad_stereo, "sad_stereo", dev,
-                _ptr(atlas_l), _ptr(atlas_r), _ptr(cv), _ptr(cu), _ptr(cur), _ptr(lvl),
-                _ptr(off_t), _ptr(h_t), _ptr(w_t), _ptr(out), B, K, HA, W, off_t.shape[0])
+                atlas_l.data_ptr(), atlas_r.data_ptr(), cv.data_ptr(), cu.data_ptr(),
+                cur.data_ptr(), lvl.data_ptr(), off_t.data_ptr(), h_t.data_ptr(),
+                w_t.data_ptr(), out.data_ptr(), B, K, HA, W, off_t.shape[0])
         sad_stereo.launches += 1
     return out
 

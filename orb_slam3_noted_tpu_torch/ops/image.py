@@ -17,6 +17,7 @@ JAX by about 2e-3; this form by about 5e-4 at most.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -107,3 +108,49 @@ def build_pyramid(
         hl, wl = sizes[lvl]
         levels.append(resize_bilinear(levels[-1], hl, wl))
     return levels
+
+
+class PyramidAtlas(NamedTuple):
+    """The levels of one pyramid stacked into one (sum h_l, W0) image, each
+    level left-aligned and zero-padded to the level-0 width.  The blur and
+    rBRIEF kernels take ``sizes`` (host integers); the SAD kernel indexes
+    the device tables by keypoint level."""
+
+    image: torch.Tensor  # (..., HA, W0) float32
+    off: torch.Tensor    # (n_levels,) int32 first row of each level
+    h: torch.Tensor      # (n_levels,) int32
+    w: torch.Tensor      # (n_levels,) int32
+    sizes: tuple         # ((h_l, w_l), ...) as Python ints
+
+
+def level_offsets(sizes: tuple) -> list[int]:
+    """First atlas row of each level."""
+    return [int(o) for o in np.concatenate([[0], np.cumsum([h for h, _ in sizes])])[:len(sizes)]]
+
+
+@functools.lru_cache(maxsize=32)
+def level_tables(sizes: tuple, device: torch.device):
+    """(off, h, w) int32 tensors of an atlas with these level sizes, made
+    once per (sizes, device): no frame pays a host-to-device copy for them."""
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return i32(level_offsets(sizes)), i32([h for h, _ in sizes]), i32([w for _, w in sizes])
+
+
+def level_views(image: torch.Tensor, sizes: tuple) -> list[torch.Tensor]:
+    """Each level's (..., h_l, w_l) window of an (..., HA, W0) atlas image."""
+    return [image[..., o:o + h, :w] for o, (h, w) in zip(level_offsets(sizes), sizes)]
+
+
+def build_atlas(pyr: tuple) -> PyramidAtlas:
+    W0 = pyr[0].shape[-1]
+    sizes = tuple((int(p.shape[-2]), int(p.shape[-1])) for p in pyr)
+    image = torch.cat([F.pad(p, (0, W0 - w)) for p, (_, w) in zip(pyr, sizes)], dim=-2).contiguous()
+    return PyramidAtlas(image, *level_tables(sizes, image.device), sizes)
+
+
+def stack_atlases(atlases: list) -> PyramidAtlas:
+    """Atlases of equal level sizes as one with a leading batch dimension."""
+    first = atlases[0]
+    if any(a.sizes != first.sizes for a in atlases):
+        raise ValueError("stack_atlases: level sizes differ")
+    return first._replace(image=torch.stack([a.image for a in atlases]))

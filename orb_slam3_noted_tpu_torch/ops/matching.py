@@ -16,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
+from orb_slam3_noted_tpu_torch.utils.interop import set_scalar
 
 TH_HIGH = 100  # reference ORBmatcher::TH_HIGH
 TH_LOW = 50    # reference ORBmatcher::TH_LOW
@@ -64,7 +65,7 @@ def _rotation_consistency(ang_a, ang_b, idx, matched):
     )
     top3 = topk_stable(hist, 3)[1]
     keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool, device=idx.device)
-    keep_bin[top3] = True
+    set_scalar(keep_bin, top3, True)
     keep_bin = keep_bin & (hist > 0.1 * torch.amax(hist))
     return matched & keep_bin[bins.long()]
 

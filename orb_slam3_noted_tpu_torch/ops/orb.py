@@ -1,10 +1,12 @@
 """ORB extraction: IC-angle orientation, rBRIEF descriptors, full pyramid.
 
-Port of :mod:`orb_slam3_noted_tpu.ops.orb`.  Per level: the FAST score map
-(kernel K1), corner selection (:mod:`.fast`), intensity-centroid angles
-from row prefix sums, the 7-tap blur (kernel K2), and rBRIEF sampling
-(kernel K3) at pattern coordinates rotated in PyTorch, exactly as the JAX
-package rotates them before its Pallas sampler.
+Port of :mod:`orb_slam3_noted_tpu.ops.orb`, in two steps.  Detection, per
+level: the FAST score map (kernel K1), corner selection (:mod:`.fast`) and
+intensity-centroid angles from row prefix sums.  Description, once for all
+levels (and for both images of a stereo pair): the 7-tap blur of the
+pyramid atlas (kernel K2) and rBRIEF sampling of every keypoint on it
+(kernel K3), which rotates the pattern by the keypoint's angle as the JAX
+package does ahead of its Pallas sampler.
 
 Every function takes an optional leading batch dimension; a (B, H, W) image
 batch gives FrameFeatures with a leading B, as the JAX package's ``vmap``
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -22,7 +26,6 @@ import torch.nn.functional as F
 from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
 from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
 from orb_slam3_noted_tpu_torch.ops import image as image_ops
-from orb_slam3_noted_tpu_torch.ops.orb_pattern import BIT_PATTERN_31
 from orb_slam3_noted_tpu_torch.utils import interop
 
 HALF_PATCH = 15
@@ -93,32 +96,15 @@ def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.atan2(_at(m01, xy), _at(m10, xy))
 
 
-# Pattern points as float (x, y): the 256 first points, then the 256 second.
-_PALL = np.concatenate(
-    [BIT_PATTERN_31[:, 0:2], BIT_PATTERN_31[:, 2:4]], 0
-).astype(np.float32)  # (512, 2)
-
-
-def brief_coords(h: int, w: int, xy: torch.Tensor, angle: torch.Tensor):
-    """(gy, gx) int32 (..., K, 512): the pattern rotated by each keypoint's
-    angle, rounded, offset to the keypoint and clipped to the (h, w) level
-    (``orb.py`` of the JAX package, ahead of its sampler)."""
-    a = torch.cos(angle)[..., None]
-    b = torch.sin(angle)[..., None]
-    pall = torch.from_numpy(_PALL).to(xy.device)
-    px, py = pall[:, 0], pall[:, 1]
-    rx = torch.round(px * a - py * b).to(torch.int32)
-    ry = torch.round(px * b + py * a).to(torch.int32)
-    gx = torch.clamp(xy[..., 0:1].to(torch.int32) + rx, 0, w - 1)
-    gy = torch.clamp(xy[..., 1:2].to(torch.int32) + ry, 0, h - 1)
-    return gy.contiguous(), gx.contiguous()
+brief_coords = ck.brief_coords
 
 
 def brief_descriptors(img_blur: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Steered BRIEF: (..., K, 8) int32 descriptors of keypoints xy (..., K, 2)
     with angles (..., K) on the blurred level (..., H, W)."""
-    gy, gx = brief_coords(img_blur.shape[-2], img_blur.shape[-1], xy, angle)
-    return ck.brief_sample(img_blur, gy, gx)
+    H, W = img_blur.shape[-2:]
+    level = torch.zeros(angle.shape, dtype=torch.int32, device=angle.device)
+    return ck.brief_sample(img_blur, ((H, W),), xy.to(torch.int32), angle, level)
 
 
 class FrameFeatures(NamedTuple):
@@ -168,6 +154,78 @@ def extract_orb(
     )
 
 
+class Detections(NamedTuple):
+    """Keypoints of all levels of one image before description, level after
+    level, each at its own level's resolution."""
+
+    xy: torch.Tensor        # (N, 2) float32, integer-valued level coordinates
+    level: torch.Tensor     # (N,) int32
+    angle: torch.Tensor     # (N,) float32 radians
+    response: torch.Tensor  # (N,) float32 FAST score
+    valid: torch.Tensor     # (N,) bool
+
+
+@functools.lru_cache(maxsize=32)
+def _level_of_feature(budgets: tuple, device: torch.device) -> torch.Tensor:
+    """(N,) int32 level of each feature slot: ``budgets[l]`` slots of level
+    l, in level order.  Made once per device; shared, never written."""
+    lv = np.repeat(np.arange(len(budgets), dtype=np.int32), budgets)
+    return torch.from_numpy(lv).to(device)
+
+
+def _level_to_image_scale(sizes: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(n_levels, 2) per-axis ratios (W0 / w_l, H0 / h_l) of the rounded
+    level sizes."""
+    h0, w0 = sizes[0]
+    return interop.const_tensor(tuple((w0 / w, h0 / h) for h, w in sizes), dtype, device)
+
+
+def detect_from_pyramid(
+    levels: tuple,
+    n_features: int = 1200,
+    n_levels: int = 8,
+    scale_factor: float = 1.2,
+    th_high: float = 20.0,
+    th_low: float = 7.0,
+) -> Detections:
+    """FAST corners and their angles on every (..., Hl, Wl) level."""
+    batch = levels[0].shape[:-2]
+    budgets = fast_ops.level_budgets(n_features, n_levels, scale_factor)
+    budgets = tuple(max(b, 0) for b, _ in zip(budgets, levels))
+    outs = []
+    for level_img, budget in zip(levels, budgets):
+        if budget <= 0:
+            continue
+        level_img = level_img.contiguous()
+        score = ck.fast_score(level_img)
+        kps = fast_ops.detect_level(
+            score, n_out=budget, th_high=th_high, th_low=th_low, border=16
+        )
+        outs.append((kps.xy, ic_angles(level_img, kps.xy), kps.score, kps.valid))
+    n = len(batch)  # keypoints concatenate along the axis after the batch
+    xy, angle, response, valid = (torch.cat(parts, dim=n) for parts in zip(*outs))
+    level = _level_of_feature(budgets, xy.device)
+    if batch:
+        level = level.expand(*batch, -1).contiguous()
+    return Detections(xy, level, angle, response, valid)
+
+
+def describe(atlas: image_ops.PyramidAtlas, det: Detections) -> FrameFeatures:
+    """Blur the atlas once and sample every keypoint's rBRIEF on it; the
+    features come out in ``det``'s order, at level-0 coordinates.  A leading
+    batch dimension on both (a stereo pair) goes through the same two
+    launches."""
+    blur = ck.gaussian_blur7(atlas.image, atlas.sizes)
+    desc = ck.brief_sample(blur, atlas.sizes, det.xy.to(torch.int32), det.angle, det.level)
+    # exact level->0 mapping with half-pixel centres and the actual
+    # per-axis ratio of the rounded level sizes
+    ax = _level_to_image_scale(atlas.sizes, det.xy.dtype, det.xy.device)[det.level.long()]
+    return FrameFeatures(
+        xy=(det.xy + 0.5) * ax - 0.5, level=det.level, angle=det.angle,
+        response=det.response, desc=desc, valid=det.valid,
+    )
+
+
 def extract_from_pyramid(
     levels: tuple,
     n_features: int = 1200,
@@ -177,39 +235,11 @@ def extract_from_pyramid(
     th_low: float = 7.0,
 ) -> FrameFeatures:
     """ORB extraction from a prebuilt pyramid of (..., Hl, Wl) levels."""
-    img = levels[0]
-    batch = img.shape[:-2]
-    budgets = fast_ops.level_budgets(n_features, n_levels, scale_factor)
-    h0, w0 = img.shape[-2], img.shape[-1]
-
-    outs = []
-    for lvl, (level_img, budget) in enumerate(zip(levels, budgets)):
-        if budget <= 0:
-            continue
-        level_img = level_img.contiguous()
-        score = ck.fast_score(level_img)
-        kps = fast_ops.detect_level(
-            score, n_out=budget, th_high=th_high, th_low=th_low, border=16
-        )
-        ang = ic_angles(level_img, kps.xy)
-        blur = ck.gaussian_blur7(level_img)
-        desc = brief_descriptors(blur, kps.xy, ang)
-        # exact level->0 mapping with half-pixel centres and the actual
-        # per-axis ratio of the rounded level sizes
-        hl, wl = level_img.shape[-2], level_img.shape[-1]
-        ax = torch.tensor([w0 / wl, h0 / hl], dtype=img.dtype, device=img.device)
-        outs.append(
-            FrameFeatures(
-                xy=(kps.xy + 0.5) * ax - 0.5,
-                level=torch.full((*batch, budget), lvl, dtype=torch.int32, device=img.device),
-                angle=ang,
-                response=kps.score,
-                desc=desc,
-                valid=kps.valid,
-            )
-        )
-    n = len(batch)  # features concatenate along the axis after the batch
-    return FrameFeatures(*(torch.cat(parts, dim=n) for parts in zip(*outs)))
+    det = detect_from_pyramid(
+        levels, n_features=n_features, n_levels=n_levels, scale_factor=scale_factor,
+        th_high=th_high, th_low=th_low,
+    )
+    return describe(image_ops.build_atlas(levels), det)
 
 
 def extract_orb_batch(

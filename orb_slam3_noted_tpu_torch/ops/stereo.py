@@ -16,14 +16,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
-import torch.nn.functional as F
 
 from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
 from orb_slam3_noted_tpu_torch.ops import matching as M
+from orb_slam3_noted_tpu_torch.ops.image import PyramidAtlas, build_atlas  # noqa: F401  (kept names)
 from orb_slam3_noted_tpu_torch.ops.orb import FrameFeatures, scale_factors
 from orb_slam3_noted_tpu_torch.utils import interop
+from orb_slam3_noted_tpu_torch.utils.interop import const_tensor
 
 _L = ck.SAD_SLIDE
 
@@ -43,27 +43,6 @@ def from_numpy(d: dict, device=None) -> StereoMatches:
     return interop.from_numpy(StereoMatches, d, device)
 
 
-class PyramidAtlas(NamedTuple):
-    """The levels of one pyramid stacked into one (sum h_l, W0) image, each
-    level left-aligned and zero-padded to the level-0 width, with the
-    per-level tables the SAD kernel indexes by keypoint level."""
-
-    image: torch.Tensor  # (HA, W0) float32
-    off: torch.Tensor    # (n_levels,) int32 first row of each level
-    h: torch.Tensor      # (n_levels,) int32
-    w: torch.Tensor      # (n_levels,) int32
-
-
-def build_atlas(pyr: tuple) -> PyramidAtlas:
-    W0 = pyr[0].shape[-1]
-    hs = [int(p.shape[-2]) for p in pyr]
-    ws = [int(p.shape[-1]) for p in pyr]
-    dev = pyr[0].device
-    image = torch.cat([F.pad(p, (0, W0 - w)) for p, w in zip(pyr, ws)], dim=-2).contiguous()
-    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
-    return PyramidAtlas(image, i32(np.concatenate([[0], np.cumsum(hs)])[:len(hs)]), i32(hs), i32(ws))
-
-
 def level_centres(left: FrameFeatures, right: FrameFeatures, idx_r: torch.Tensor, pyr_left: tuple):
     """(cv, cu, cur) int32: each left keypoint's row and column, and its
     matched right keypoint's column, at the left keypoint's level
@@ -71,8 +50,8 @@ def level_centres(left: FrameFeatures, right: FrameFeatures, idx_r: torch.Tensor
     dtype = left.xy.dtype
     dev = left.xy.device
     H0, W0 = pyr_left[0].shape[-2], pyr_left[0].shape[-1]
-    sx_t = torch.tensor([W0 / p.shape[-1] for p in pyr_left], dtype=dtype, device=dev)
-    sy_t = torch.tensor([H0 / p.shape[-2] for p in pyr_left], dtype=dtype, device=dev)
+    sx_t = const_tensor(tuple(W0 / p.shape[-1] for p in pyr_left), dtype, dev)
+    sy_t = const_tensor(tuple(H0 / p.shape[-2] for p in pyr_left), dtype, dev)
     lvl = left.level.long()
     sx, sy = sx_t[lvl], sy_t[lvl]
     uR0 = right.xy[idx_r.long(), 0]
@@ -87,8 +66,8 @@ def hamming_candidates(left: FrameFeatures, right: FrameFeatures, bf: float, bas
     """(idx_r (NL,) int64, have (NL,) bool): best right candidate per left
     keypoint under the row, octave and disparity gates, first index on
     ties."""
-    sf = torch.as_tensor(scale_factors(n_levels, scale_factor), dtype=left.xy.dtype,
-                         device=left.xy.device)
+    sf = const_tensor(tuple(scale_factors(n_levels, scale_factor).tolist()), left.xy.dtype,
+                left.xy.device)
     max_d = bf / baseline
     th_orb = (M.TH_HIGH + M.TH_LOW) // 2
     d = M.hamming_matrix(left.desc, right.desc)  # (NL, NR)
@@ -114,12 +93,15 @@ def match_stereo(
     baseline: float,
     n_levels: int = 8,
     scale_factor: float = 1.2,
+    atlases: tuple | None = None,
 ) -> StereoMatches:
     """Match left features to right features on a rectified pair.
 
     ``pyr_left``/``pyr_right``: the per-level images of
     :func:`..image.build_pyramid`, for the SAD refinement at the keypoint's
-    own pyramid level.
+    own pyramid level.  ``atlases``: their (left, right)
+    :class:`..image.PyramidAtlas`, where the caller already built them for
+    extraction; built here otherwise.
     """
     NL = left.xy.shape[0]
     dtype = left.xy.dtype
@@ -128,7 +110,7 @@ def match_stereo(
 
     uL0 = left.xy[:, 0]
     cv, cu, cur, sx = level_centres(left, right, idx_r, pyr_left)
-    al, ar = build_atlas(pyr_left), build_atlas(pyr_right)
+    al, ar = atlases if atlases is not None else (build_atlas(pyr_left), build_atlas(pyr_right))
     sads = ck.sad_stereo(al.image, ar.image, cv, cu, cur, left.level.contiguous(),
                          al.off, al.h, al.w)     # (NL, 11)
 
@@ -143,7 +125,7 @@ def match_stereo(
     good_delta = (delta >= -1.0) & (delta <= 1.0) & interior
     u_lvl = cur.to(dtype) + (km - _L) + delta
     uR_best = (u_lvl + 0.5) * sx - 0.5  # inverse half-pixel mapping
-    inf = torch.tensor(float("inf"), dtype=dtype, device=sads.device)
+    inf = float("inf")
 
     ok_all = have & good_delta
     u_best = torch.where(ok_all, uR_best, -1.0)

@@ -111,7 +111,10 @@ def empty_map(cfg: SlamConfig, device=None, dtype=torch.float32) -> MapArrays:
 def _set(t: torch.Tensor, idx, value) -> torch.Tensor:
     """Functional ``t.at[idx].set(value)``."""
     out = t.clone()
-    out[idx] = value
+    if isinstance(value, torch.Tensor):
+        out[idx] = value
+    else:
+        interop.set_scalar(out, idx, value)
     return out
 
 
@@ -166,7 +169,7 @@ def add_keyframe(
     bound = mp_bind >= 0
     mp_idx = mp_bind.clamp(min=0).long()
     row = torch.zeros(MP, dtype=torch.bool, device=bound.device)
-    row[mp_idx[bound]] = True
+    interop.set_scalar(row, mp_idx[bound], True)
     m = m._replace(
         obs_mat=_set(m.obs_mat, slot, row),
         mp_nobs=m.mp_nobs.index_add(0, mp_idx, bound.to(torch.int32)),
@@ -198,7 +201,7 @@ def local_map_mask(m: MapArrays, slot: int, n_neighbors: int = 10):
     top_w, top_i = topk_stable(w, n_neighbors)
     kf_mask = torch.zeros(m.kf_valid.shape[0], dtype=torch.bool, device=w.device)
     kf_mask[top_i] = top_w > 0
-    kf_mask[slot] = True
+    interop.set_scalar(kf_mask, slot, True)
     sel = m.obs_mat & kf_mask[:, None]
     mp_mask = torch.any(sel, dim=0) & m.mp_valid
     return mp_mask, kf_mask
@@ -396,7 +399,7 @@ def cull_keyframes(m: MapArrays, window_mask: torch.Tensor, protect: torch.Tenso
     cull = cand & cull_joint
     best = torch.argmax(torch.where(cand, red, -1.0))
     fallback = torch.zeros_like(cand)
-    fallback[best] = True
+    interop.set_scalar(fallback, best, True)
     cull = torch.where(torch.any(cull), cull, fallback & cand)
     keep = ~cull
     kf_valid = m.kf_valid & keep

@@ -35,11 +35,17 @@ from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+from orb_slam3_noted_tpu_torch.utils.interop import set_scalar
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 RECENTLY_LOST = "RECENTLY_LOST"
 LOST = "LOST"
+
+# profiler ranges around a frame's ORB extraction and stereo matching
+# (free unless a torch.profiler is recording)
+EXTRACTION_RANGE = "orb_extraction"
+STEREO_RANGE = "stereo_matching"
 
 
 def _todo(what: str, step: int):
@@ -180,8 +186,8 @@ class MonoSLAM:
             slot = self.last_kf_slot
             _, kf_mask = MS.local_map_mask(self.m, slot, n_neighbors=self.cfg.local_window)
             protect = torch.zeros(self.cfg.max_keyframes, dtype=torch.bool, device=self.device)
-            protect[slot] = True
-            protect[0] = True
+            set_scalar(protect, slot, True)
+            set_scalar(protect, 0, True)
             self.m = MS.cull_keyframes(self.m, kf_mask, protect)
             self._refill_free_slots(_np(self.m.kf_valid))
             return bool(self.free_kf_slots)
@@ -394,17 +400,24 @@ class StereoSLAM(MonoSLAM):
         """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
         cfg = self.cfg
         kw = self._orb_args()
-        # each pyramid is built once and shared by extraction and matching
-        pyrs, feats_lr = [], []
-        for img in (img_left, img_right):
-            im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
-            pyrs.append(tuple(I.build_pyramid(im, cfg.n_levels, cfg.scale_factor)))
-            feats_lr.append(O.extract_from_pyramid(pyrs[-1], **kw))
-        feats = feats_lr[0]
-        sm = match_stereo(
-            feats, feats_lr[1], pyrs[0], pyrs[1], bf=cfg.bf, baseline=cfg.bf / self.cam.fx,
-            n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
-        )
+        # each pyramid and its atlas are built once and shared by extraction
+        # and matching; corners are detected per image, then one blur and one
+        # rBRIEF launch describe the stacked pair
+        pyrs, atlases, dets = [], [], []
+        with torch.profiler.record_function(EXTRACTION_RANGE):
+            for img in (img_left, img_right):
+                im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
+                pyrs.append(tuple(I.build_pyramid(im, cfg.n_levels, cfg.scale_factor)))
+                atlases.append(I.build_atlas(pyrs[-1]))
+                dets.append(O.detect_from_pyramid(pyrs[-1], **kw))
+            pair = O.describe(I.stack_atlases(atlases),
+                              O.Detections(*(torch.stack(f) for f in zip(*dets))))
+            feats, feats_r = (O.FrameFeatures(*(f[i] for f in pair)) for i in range(2))
+        with torch.profiler.record_function(STEREO_RANGE):
+            sm = match_stereo(
+                feats, feats_r, pyrs[0], pyrs[1], bf=cfg.bf, baseline=cfg.bf / self.cam.fx,
+                n_levels=cfg.n_levels, scale_factor=cfg.scale_factor, atlases=tuple(atlases),
+            )
         uvr = torch.where(sm.valid, sm.u_right, -1.0)
         depth = torch.where(sm.valid, sm.depth, -1.0)
 
@@ -452,8 +465,9 @@ class RGBDSLAM(StereoSLAM):
 
     def process(self, img, depth_img, frame_id: int):
         cfg = self.cfg
-        im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
-        feats = self._extract(im)
+        with torch.profiler.record_function(EXTRACTION_RANGE):
+            im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
+            feats = self._extract(im)
         dmap = torch.as_tensor(np.asarray(depth_img), dtype=torch.float32).to(self.device)
         H, W = dmap.shape
         # bilinear depth at sub-pixel keypoints, nearest when any neighbour

@@ -33,12 +33,13 @@ from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
 from orb_slam3_noted_tpu_torch.optim.pose_opt import PoseObs, pose_optimization
 from orb_slam3_noted_tpu_torch.optim.window_ba import WindowObs, window_bundle_adjust
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+from orb_slam3_noted_tpu_torch.utils.interop import const_tensor, set_scalar
 from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 
 
 def _scale_table(cfg: SlamConfig, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(
-        O.scale_factors(cfg.n_levels, cfg.scale_factor), dtype=like.dtype, device=like.device
+    return const_tensor(
+        tuple(O.scale_factors(cfg.n_levels, cfg.scale_factor).tolist()), like.dtype, like.device
     )
 
 
@@ -67,7 +68,7 @@ def project_map_points(
     angle_ok = torch.sum(view * m.mp_normal, dim=-1) > 0.5
     # predicted octave from distance (reference MapPoint::PredictScale)
     ratio = torch.clamp(m.mp_dmax / torch.clamp(d, min=1e-9), min=1.0)
-    log_sf = torch.tensor(math.log(scale_factor), dtype=ratio.dtype, device=ratio.device)
+    log_sf = const_tensor((math.log(scale_factor),), ratio.dtype, ratio.device)[0]
     level = torch.clamp(torch.ceil(torch.log(ratio) / log_sf).to(torch.int32), 0, n_levels - 1)
     visible = m.mp_valid & z_ok & in_img & dist_ok & angle_ok
     return uv, level, visible
@@ -105,7 +106,7 @@ def match_local_map(
 
     matched = mm.idx >= 0
     f_idx = mm.idx.clamp(min=0).long()
-    sigma2 = torch.as_tensor(cfg.level_sigma2, dtype=uv_pred.dtype, device=uv_pred.device)
+    sigma2 = const_tensor(tuple(cfg.level_sigma2), uv_pred.dtype, uv_pred.device)
     if feat_uvr is not None:
         uvr = feat_uvr[f_idx]
         is_st = matched & (uvr >= 0)
@@ -431,8 +432,8 @@ def insert_keyframe_step(
     m = MS.update_point_stats(m, mp_mask, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor)
     m = local_ba(m, slot, cam, cfg, window=cfg.local_window, bf=bf)
     protect = torch.zeros(m.kf_valid.shape[0], dtype=torch.bool, device=dev)
-    protect[slot] = True
-    protect[0] = True
+    set_scalar(protect, slot, True)
+    set_scalar(protect, 0, True)
     return MS.cull_keyframes(m, kf_mask, protect), n_mp
 
 
@@ -481,7 +482,7 @@ def local_ba(
     in_window = _any_at(KF, kf_slots, kf_mask)
     fids = torch.where(kf_mask, m.kf_frame_id[kf_slots], 1 << 30)
     pose_fixed_w = ~kf_mask
-    pose_fixed_w[torch.argmin(fids)] = True
+    set_scalar(pose_fixed_w, torch.argmin(fids), True)
     # padded entries read and write the scratch row KF of the padded tables
     kf_slots_w = torch.where(kf_mask, kf_slots, KF)
 
@@ -508,7 +509,7 @@ def local_ba(
     )
     a_k, a_f = all_k[sel], all_f[sel]
 
-    sigma2 = torch.as_tensor(cfg.level_sigma2, dtype=m.mp_pos.dtype, device=dev)
+    sigma2 = const_tensor(tuple(cfg.level_sigma2), m.mp_pos.dtype, dev)
     pose_idx = torch.cat([kf_g, a_k])
     feat_idx = torch.cat([f_idx, a_f])
     uvr = m.kf_uvr[pose_idx, feat_idx]
@@ -537,7 +538,7 @@ def local_ba(
     centre_again = torch.any(~kf_mask & (kf_slots == center_slot))
     out = out & ~(centre_again & (k_local == 0))
     kf_mp = torch.cat([m.kf_mp.reshape(-1), m.kf_mp.new_full((1,), -1)])
-    kf_mp[torch.where(out, kf_g * NF + f_idx, KF * NF)] = -1
+    set_scalar(kf_mp, torch.where(out, kf_g * NF + f_idx, KF * NF), -1)
     kf_mp = kf_mp[: KF * NF].reshape(KF, NF)
     # obs_mat rows of the window keyframes, rebuilt from the surviving bindings
     rows = _any_at(K * MP, k_local * MP + mp_idx, valid & ~out).reshape(K, MP)

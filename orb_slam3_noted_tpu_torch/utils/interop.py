@@ -10,8 +10,27 @@ uint32 in the JAX package and int32 tensors here holding the same bits
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+
+@functools.lru_cache(maxsize=256)
+def const_tensor(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A small constant table (a tuple of numbers, or of tuples of them) as
+    a tensor on ``device``, copied there once and shared by every later
+    call: read it, never write it.  Keeps per-frame code free of
+    host-to-device copies for values that never change."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def set_scalar(t: torch.Tensor, idx, value) -> None:
+    """``t[idx] = value`` in place for a Python number or bool.  Plain item
+    assignment wraps the value in a CPU tensor and copies that to a CUDA
+    ``t``, one host-to-device copy an assignment; this fills a scalar on
+    ``t``'s device instead."""
+    t[idx] = torch.full((), value, dtype=t.dtype, device=t.device)
 
 
 def to_numpy(t, uint32_fields=()) -> dict:

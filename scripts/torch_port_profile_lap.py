@@ -16,7 +16,10 @@ frames) through the port on ``cuda``:
    from 30 holds one): device-busy ms
    per frame, kernel launches per frame, the ten operations with the most
    device time, and the device's idle share against the median unprofiled
-   frame of the same kind;
+   frame of the same kind.  Kernel launches, host-to-device copies and
+   host time per frame are also split by the facade's ranges -- ORB
+   extraction, stereo matching, the rest (tracking and the mapper) -- and
+   the hand-written kernels' own device time is listed by name;
 3. peak device memory of the whole process.
 
 Prints one JSON object last, and the card's name and power limit before it;
@@ -29,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
@@ -70,6 +74,46 @@ def run_lap(mode, cfg, frames, dev, profile_range=None):
     return slam, np.asarray(ms), np.asarray(is_kf), prof
 
 
+def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
+    """Per frame and per facade range (and ``rest`` for what lies outside
+    them): kernel launches (``cudaLaunchKernel*`` calls), host-to-device
+    copies (operations whose linked device record is a ``Memcpy HtoD``,
+    listed by the chain of operations that issued them), both placed by the
+    host time of the call, and the host time of the range itself."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    spans = {r: sorted((e.time_range.start, e.time_range.end) for e in events
+                       if e.name == r and e.device_type == DeviceType.CPU) for r in ranges}
+
+    def where(t):
+        for r, ivs in spans.items():
+            if any(a <= t <= b for a, b in ivs):
+                return r
+        return "rest"
+
+    out = {r: {"launches": 0, "h2d_copies": 0, "h2d_from": {},
+               "host_ms": sum(b - a for a, b in spans.get(r, ())) / 1e3 / n_frames}
+           for r in (*ranges, "rest")}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunchKernel"):
+            out[where(e.time_range.start)]["launches"] += 1
+        elif (e.device_type == DeviceType.CPU
+              and any(k.name.startswith("Memcpy HtoD") for k in e.kernels)):
+            r = out[where(e.time_range.start)]
+            r["h2d_copies"] += 1
+            chain, up = [], e
+            while up is not None and len(chain) < 4:
+                chain.append(up.name)
+                up = up.cpu_parent
+            r["h2d_from"][" < ".join(chain)] = r["h2d_from"].get(" < ".join(chain), 0) + 1
+    for r in out.values():
+        r["launches"] /= n_frames
+        r["h2d_copies"] /= n_frames
+        r["h2d_from"] = {k: v / n_frames for k, v in r["h2d_from"].items()}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mode", choices=("stereo", "rgbd"), default="stereo")
@@ -81,6 +125,8 @@ def main() -> int:
     import torch
 
     import chip_smoke as cs
+    from orb_slam3_noted_tpu_torch.ops.cuda_kernels import KERNELS
+    from orb_slam3_noted_tpu_torch.pipeline import system
 
     dev = torch.device("cuda")
     smi = cs.nvidia_smi()
@@ -109,12 +155,23 @@ def main() -> int:
     keys = prof.key_averages()
     dev_us = lambda k: k.self_device_time_total
     # device rows are the kernels and copies themselves; host rows (aten::...)
-    # carry the device time of what they launched, so each sum takes one kind
-    on_device = [k for k in keys if k.device_type == DeviceType.CUDA]
-    on_host = [k for k in keys if k.device_type != DeviceType.CUDA]
+    # carry the device time of what they launched, so each sum takes one kind.
+    # The facade's ranges are neither: the profiler mirrors them onto the
+    # device timeline with the range's whole span as their "device time".
+    ranges = (system.EXTRACTION_RANGE, system.STEREO_RANGE)
+    on_device = [k for k in keys if k.device_type == DeviceType.CUDA and k.key not in ranges]
+    on_host = [k for k in keys if k.device_type != DeviceType.CUDA and k.key not in ranges]
     busy_ms = sum(dev_us(k) for k in on_device) / 1e3
     launches = sum(k.count for k in on_host if k.key.startswith("cudaLaunchKernel"))
     top = sorted(on_host, key=dev_us, reverse=True)[:10]
+    by_range = split_by_range(prof, ranges, n_prof)
+    h2d_rows = sum(k.count for k in on_device if k.key.startswith("Memcpy HtoD")) / n_prof
+    # the rest's host time: the profiled frame less the ranges
+    by_range["rest"]["host_ms"] = float(ms_p[first:last].mean()) - sum(
+        r["host_ms"] for k, r in by_range.items() if k != "rest")
+    names = "|".join(fn.__name__ + "_kernel" for fn in KERNELS)
+    hand = {re.search(names, k.key).group(0): [k.count / n_prof, dev_us(k) / 1e3 / n_prof]
+            for k in on_device if re.search(names, k.key)}
     kf_in_window = int(kf_p[first:last].sum())
     # idle share against unprofiled frames: the profiler slows the host down
     plain_ms = float(np.mean([
@@ -132,12 +189,17 @@ def main() -> int:
             "unprofiled_ms_per_frame": plain_ms,
             "idle_share": 1.0 - (busy_ms / n_prof) / plain_ms,
             "top_device_ops": [[k.key[:60], dev_us(k) / 1e3 / n_prof] for k in top],
+            "per_frame_by_range": by_range,
+            "h2d_copies_per_frame": h2d_rows,
+            "hand_kernels_launches_and_device_ms_per_frame": hand,
         },
         "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
     }
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, f"profile_{args.mode}_{first}.txt"), "w") as f:
-        f.write(f"{smi}\n{'operation':<70} {'calls':>8} {'device ms':>12}\n")
+        f.write(f"{smi}\nper frame by range: {json.dumps(by_range)}\n"
+                f"hand-written kernels (launches, device ms per frame): {json.dumps(hand)}\n"
+                f"{'operation':<70} {'calls':>8} {'device ms':>12}\n")
         for rows in (on_host, on_device):
             for k in sorted(rows, key=dev_us, reverse=True)[:40]:
                 f.write(f"{k.key[:70]:<70} {k.count:>8} {dev_us(k) / 1e3:>12.3f}\n")

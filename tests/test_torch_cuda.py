@@ -47,24 +47,116 @@ def test_fast_score_kernel_exact(dev, lvl):
 
 @pytest.mark.parametrize("lvl", range(8))
 def test_gaussian_blur7_kernel_exact(dev, lvl):
+    """The single-level form: a one-level table over the atlas kernel."""
     img = image_ops.build_pyramid(_image(SHAPES[0], dev, 1))[lvl].contiguous()
+    before = ck.gaussian_blur7.launches
     out = ck.gaussian_blur7(img)
+    assert ck.gaussian_blur7.launches == before + 1
     torch.cuda.synchronize()
     # __fmul_rn/__fadd_rn round each tap as the plain multiply and add do
     assert torch.equal(out, ck.gaussian_blur7_plain(img))
 
 
+def _atlas(dev, seed, batch=(), n_levels=8):
+    """A noise atlas over the first ``n_levels`` level shapes."""
+    sizes = tuple(SHAPES[:n_levels])
+    pyr = tuple(_image((*batch, h, w), dev, seed + i) for i, (h, w) in enumerate(sizes))
+    return image_ops.build_atlas(pyr)
+
+
+def _levels_equal(a, b, sizes):
+    """Over the level windows: the card leaves the padding unwritten."""
+    return all(torch.equal(x, y) for x, y in
+               zip(image_ops.level_views(a, sizes), image_ops.level_views(b, sizes)))
+
+
+@pytest.mark.parametrize("n_levels", [1, 8])
+@pytest.mark.parametrize("batch", [(), (1,), (2,)])
+def test_gaussian_blur7_atlas_kernel_exact(dev, batch, n_levels):
+    """One launch over every level of every image: bit-equal with the
+    per-level plain version, twice the same bits, and the input's padding
+    and neighbouring levels never reach a level."""
+    atlas = _atlas(dev, 20, batch, n_levels)
+    before = ck.gaussian_blur7.launches
+    out = ck.gaussian_blur7(atlas.image, atlas.sizes)
+    assert ck.gaussian_blur7.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == atlas.image.shape
+    assert _levels_equal(out, ck.gaussian_blur7_plain(atlas.image, atlas.sizes), atlas.sizes)
+    assert _levels_equal(out, ck.gaussian_blur7(atlas.image, atlas.sizes), atlas.sizes)
+    if n_levels > 1:
+        other = atlas.image.clone()
+        o1, (h1, w1) = image_ops.level_offsets(atlas.sizes)[1], atlas.sizes[1]
+        other[..., o1:o1 + h1, w1:] = 1e6      # level 1's padding
+        other[..., :o1, :] = 0.0               # the level above it
+        other[..., o1 + h1:, :] = 0.0          # every level below it
+        a = image_ops.level_views(out, atlas.sizes)[1]
+        b = image_ops.level_views(ck.gaussian_blur7(other, atlas.sizes), atlas.sizes)[1]
+        assert torch.equal(a, b)
+
+
+def _keypoints(dev, seed, sizes, n, batch=()):
+    """Random keypoints over all levels, some on and past the 16-px border so
+    samples clip, some with the angles whose sine is exactly one half."""
+    g = torch.Generator().manual_seed(seed)
+    hs = torch.tensor([h for h, _ in sizes])
+    ws = torch.tensor([w for _, w in sizes])
+    lvl = torch.randint(0, len(sizes), (*batch, n), generator=g)
+    u = torch.rand((*batch, n, 2), generator=g)
+    xy = (u * torch.stack([ws[lvl], hs[lvl]], -1)).floor()
+    xy[..., 0, :] = 0.0
+    xy[..., 1, :] = 16.0
+    ang = (torch.rand((*batch, n), generator=g) * 2 - 1) * torch.pi
+    ang[..., 1:n:7] = torch.pi / 6
+    ang[..., 2:n:7] = -torch.pi / 6
+    return xy.to(torch.int32).to(dev), ang.to(dev), lvl.to(torch.int32).to(dev)
+
+
+@pytest.mark.parametrize("n_levels", [1, 8])
+@pytest.mark.parametrize("batch", [(), (1,), (2,)])
+def test_brief_sample_atlas_kernel_exact(dev, batch, n_levels):
+    """One launch over the keypoints of every level and image, the rotation
+    inside the kernel: bit-equal with ``brief_coords`` + gather, and twice
+    the same bits."""
+    atlas = _atlas(dev, 30, batch, n_levels)
+    blur = ck.gaussian_blur7_plain(atlas.image, atlas.sizes)
+    xy, ang, lvl = _keypoints(dev, 31, atlas.sizes, 1200, batch)
+    before = ck.brief_sample.launches
+    out = ck.brief_sample(blur, atlas.sizes, xy, ang, lvl)
+    assert ck.brief_sample.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (*batch, 1200, 8) and out.dtype == torch.int32
+    assert torch.equal(out, ck.brief_sample_atlas_plain(blur, atlas.sizes, xy, ang, lvl))
+    assert torch.equal(out, ck.brief_sample(blur, atlas.sizes, xy, ang, lvl))
+
+
 @pytest.mark.parametrize("lvl", range(8))
 def test_brief_sample_kernel_exact(dev, lvl):
+    """Detected keypoints of one level, as extraction describes them: the
+    level is a one-level atlas, against ``brief_coords`` + gather."""
     img = _image(SHAPES[lvl], dev, 2)
     blur = ck.gaussian_blur7(img)
     kps = fast_ops.detect_level(ck.fast_score(img), n_out=BUDGETS[lvl])
     ang = O.ic_angles(img, kps.xy)
     gy, gx = O.brief_coords(img.shape[0], img.shape[1], kps.xy, ang)
-    out = ck.brief_sample(blur, gy, gx)
+    out = O.brief_descriptors(blur, kps.xy, ang)
     torch.cuda.synchronize()
     assert out.shape == (BUDGETS[lvl], 8) and out.dtype == torch.int32
     assert torch.equal(out, ck.brief_sample_plain(blur, gy, gx))
+
+
+def test_brief_sample_pattern_is_the_tables(dev):
+    """The ``__constant__`` pattern is filled from ``orb_pattern.py``: at
+    angle 0 the samples are the table's offsets themselves."""
+    from orb_slam3_noted_tpu_torch.ops.orb_pattern import BIT_PATTERN_31
+
+    img = _image((64, 64), dev, 4)
+    xy = torch.tensor([[32, 32]], dtype=torch.int32, device=dev)
+    out = ck.brief_sample(img, ((64, 64),), xy, torch.zeros(1, device=dev),
+                          torch.zeros(1, dtype=torch.int32, device=dev))
+    p = torch.from_numpy(BIT_PATTERN_31.astype("int64")).to(dev) + 32
+    bits = img[p[:, 1], p[:, 0]] < img[p[:, 3], p[:, 2]]
+    assert torch.equal(out[0], ck._pack_words(bits))
 
 
 def _sad_inputs(dev, seed, K, batch=()):
@@ -139,18 +231,40 @@ def test_batched_kernels(dev):
     imgs = torch.stack([_image(SHAPES[3], dev, s) for s in range(3)])
     assert torch.equal(ck.fast_score(imgs), ck.fast_score_plain(imgs))
     assert torch.equal(ck.gaussian_blur7(imgs), ck.gaussian_blur7_plain(imgs))
-    g = torch.Generator().manual_seed(0)
-    gy = torch.randint(0, SHAPES[3][0], (3, 50, 512), generator=g, dtype=torch.int32).to(dev)
-    gx = torch.randint(0, SHAPES[3][1], (3, 50, 512), generator=g, dtype=torch.int32).to(dev)
-    assert torch.equal(ck.brief_sample(imgs, gy, gx), ck.brief_sample_plain(imgs, gy, gx))
+    sizes = (SHAPES[3],)
+    xy, ang, lvl = _keypoints(dev, 0, sizes, 50, (3,))
+    assert torch.equal(ck.brief_sample(imgs, sizes, xy, ang, lvl),
+                       ck.brief_sample_atlas_plain(imgs, sizes, xy, ang, lvl))
 
 
 def test_extract_orb_on_card_matches_cpu(dev):
     img = np.asarray(_image(SHAPES[0], torch.device("cpu"), 3))
+    ck.reset_launch_counts()
     ft = O.to_numpy(O.extract_orb(torch.from_numpy(img).to(dev)))
+    assert ck.launch_counts() == {"fast_score": 8, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 0}
     fc = O.to_numpy(O.extract_orb(torch.from_numpy(img)))
     np.testing.assert_array_equal(ft["valid"], fc["valid"])
     assert np.mean(np.all(ft["desc"] == fc["desc"], axis=1)) >= 0.99
+
+
+def test_stereo_pair_description_is_one_launch_each(dev):
+    """The stereo facade's order on the card: K1 per level and image, then
+    one K2 and one K3 launch over the stacked pair; each image's features
+    equal its own ``extract_orb``."""
+    imgs = [_image(SHAPES[0], dev, s) for s in (5, 6)]
+    pyrs = [tuple(image_ops.build_pyramid(im)) for im in imgs]
+    atlases = [image_ops.build_atlas(p) for p in pyrs]
+    ck.reset_launch_counts()
+    dets = [O.detect_from_pyramid(p) for p in pyrs]
+    pair = O.describe(image_ops.stack_atlases(atlases),
+                      O.Detections(*(torch.stack(f) for f in zip(*dets))))
+    assert ck.launch_counts() == {"fast_score": 16, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 0}
+    for b, im in enumerate(imgs):
+        single = O.extract_orb(im)
+        for name, x, y in zip(single._fields, pair, single):
+            assert torch.equal(x[b], y), name
 
 
 def test_wrappers_reject_bad_input(dev):
@@ -159,9 +273,28 @@ def test_wrappers_reject_bad_input(dev):
     with pytest.raises(ValueError):
         ck.gaussian_blur7(torch.zeros(64, 128, device=dev)[:, ::2])
     img = torch.zeros(64, 64, device=dev)
-    with pytest.raises(ValueError):
-        ck.brief_sample(img, torch.zeros(4, 256, dtype=torch.int32, device=dev),
-                        torch.zeros(4, 256, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):  # reflect-101 over 3 px needs 4
+        ck.gaussian_blur7(torch.zeros(3, 64, device=dev))
+    with pytest.raises(ValueError):  # the levels do not fill the image's rows
+        ck.gaussian_blur7(img, ((32, 64), (16, 32)))
+    with pytest.raises(ValueError):  # a level wider than the image
+        ck.gaussian_blur7(img, ((32, 64), (32, 65)))
+    with pytest.raises(ValueError):  # more levels than the kernels' tables hold
+        ck.gaussian_blur7(torch.zeros(68, 64, device=dev), ((4, 64),) * 17)
+    i32 = lambda *shape: torch.zeros(shape, dtype=torch.int32, device=dev)
+    one = ((64, 64),)
+    with pytest.raises(TypeError):  # float coordinates
+        ck.brief_sample(img, one, torch.zeros(4, 2, device=dev), torch.zeros(4, device=dev), i32(4))
+    with pytest.raises(TypeError):  # float64 angles
+        ck.brief_sample(img, one, i32(4, 2), torch.zeros(4, dtype=torch.float64, device=dev), i32(4))
+    with pytest.raises(ValueError):  # (gy, gx) tables are no longer an input
+        ck.brief_sample(img, one, i32(4, 512), torch.zeros(4, device=dev), i32(4))
+    with pytest.raises(ValueError):  # one level short
+        ck.brief_sample(img, one, i32(4, 2), torch.zeros(4, device=dev), i32(3))
+    with pytest.raises(ValueError):  # keypoints on another device
+        ck.brief_sample(img, one, i32(4, 2).cpu(), torch.zeros(4, device=dev), i32(4))
+    with pytest.raises(ValueError):  # level sizes of another atlas
+        ck.brief_sample(img, ((32, 64),), i32(4, 2), torch.zeros(4, device=dev), i32(4))
     args = list(_sad_inputs(dev, 0, K=16))
     with pytest.raises(TypeError):
         ck.sad_stereo(*args[:2], args[2].long(), *args[3:])

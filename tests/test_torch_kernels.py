@@ -135,7 +135,7 @@ def test_brief_sample_plain_exact(jax_levels, lvl, monkeypatch):
     seen = {"gy": np.asarray(coords[0]), "gx": np.asarray(coords[1])}
     gy = torch.from_numpy(seen["gy"].astype(np.int32))
     gx = torch.from_numpy(seen["gx"].astype(np.int32))
-    out = ck.brief_sample(torch.from_numpy(np.array(blur)), gy, gx)
+    out = ck.brief_sample_plain(torch.from_numpy(np.array(blur)), gy, gx)
     assert out.dtype == torch.int32 and out.shape == (BUDGETS[lvl], 8)
     np.testing.assert_array_equal(out.numpy().view(np.uint32), ref)
     # the port's own rotated coordinates: cos/sin differ from XLA's in the
@@ -144,6 +144,166 @@ def test_brief_sample_plain_exact(jax_levels, lvl, monkeypatch):
                                  torch.from_numpy(np.array(ang)))
     same = np.all((tgy.numpy() == seen["gy"]) & (tgx.numpy() == seen["gx"]), axis=1)
     assert same.mean() >= 0.99
+    # the wrapper on a CPU tensor: the level as a one-level atlas, the
+    # rotation inside; equal to the gather on the port's own coordinates
+    h, w = lv.shape
+    words = ck.brief_sample(torch.from_numpy(np.array(blur)), ((h, w),),
+                            torch.from_numpy(np.array(kps.xy)).to(torch.int32),
+                            torch.from_numpy(np.array(ang)),
+                            torch.zeros(BUDGETS[lvl], dtype=torch.int32))
+    assert torch.equal(words, ck.brief_sample_plain(torch.from_numpy(np.array(blur)), tgy, tgx))
+
+
+def _atlas_inputs(seed, batch):
+    """A 3-level atlas with odd widths from numpy noise: (atlas (*batch, HA,
+    W0) float32, sizes, the levels as (*batch, h, w) arrays)."""
+    rng = np.random.default_rng(seed)
+    sizes = ((37, 61), (31, 51), (26, 43))
+    levels = [rng.uniform(0, 255, (*batch, h, w)).astype(np.float32) for h, w in sizes]
+    atlas = np.concatenate(
+        [np.pad(lv, [(0, 0)] * (lv.ndim - 1) + [(0, sizes[0][1] - lv.shape[-1])]) for lv in levels],
+        axis=-2)
+    return atlas, sizes, levels
+
+
+@pytest.mark.parametrize("batch", [(), (1,), (2,)])
+def test_atlas_blur_plain_matches_jax_level_by_level(batch):
+    """K2's plain version over an atlas: each level's window equals the JAX
+    package's CPU blur of that level alone -- bit-exact op by op, within
+    BLUR_JIT_ATOL compiled -- and the padding stays zero."""
+    atlas, sizes, levels = _atlas_inputs(11, batch)
+    before = ck.gaussian_blur7.launches
+    out = ck.gaussian_blur7(torch.from_numpy(atlas), sizes)  # CPU tensor -> plain version
+    assert ck.gaussian_blur7.launches == before
+    assert out.shape == atlas.shape and out.dtype == torch.float32
+    jit_blur = jax.jit(jpk.gaussian_blur7)
+    for view, lv in zip(timage.level_views(out, sizes), levels):
+        for idx in np.ndindex(*batch):
+            np.testing.assert_array_equal(
+                view[idx].numpy(), np.asarray(jimage.gaussian_blur(jnp.asarray(lv[idx]), 7, 2.0)))
+            np.testing.assert_allclose(
+                view[idx].numpy(), np.asarray(jit_blur(jnp.asarray(lv[idx]))), rtol=0,
+                atol=BLUR_JIT_ATOL)
+    for (h, w), o in zip(sizes, timage.level_offsets(sizes)):
+        assert float(out[..., o:o + h, w:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("change", ["padding", "neighbour_above", "neighbour_below"])
+def test_atlas_blur_level_sees_only_itself(change):
+    """Reflection happens inside a level's window: neither the padding
+    columns nor a neighbouring level's pixels reach a level's result."""
+    atlas, sizes, _ = _atlas_inputs(12, ())
+    offs = timage.level_offsets(sizes)
+    (h1, w1), o1 = sizes[1], offs[1]
+    other = atlas.copy()
+    if change == "padding":
+        other[o1:o1 + h1, w1:] = 1e6
+        other[offs[2]:, sizes[2][1]:] = -1e6
+    elif change == "neighbour_above":
+        other[:o1] = 255.0 - other[:o1]
+    else:
+        other[o1 + h1:] = 255.0 - other[o1 + h1:]
+    a = timage.level_views(ck.gaussian_blur7(torch.from_numpy(atlas), sizes), sizes)[1]
+    b = timage.level_views(ck.gaussian_blur7(torch.from_numpy(other), sizes), sizes)[1]
+    assert torch.equal(a, b)
+    assert not np.array_equal(atlas, other)
+
+
+def test_single_level_blur_is_the_one_level_atlas(jax_levels):
+    lv = torch.from_numpy(jax_levels[3])
+    assert torch.equal(ck.gaussian_blur7(lv), ck.gaussian_blur7(lv, (tuple(lv.shape),)))
+    batch = torch.stack([lv, lv.flip(-1)])
+    assert torch.equal(ck.gaussian_blur7(batch)[1], ck.gaussian_blur7(batch[1].contiguous()))
+
+
+TIE_ANGLE = np.float32(np.pi / 6)  # sin is exactly 0.5 in float32, in JAX and in torch
+
+
+@pytest.mark.parametrize("batch", [(), (2,)])
+def test_atlas_sampler_plain_matches_jax_brief_descriptors(batch):
+    """K3's plain version over an atlas against the JAX package's
+    ``brief_descriptors`` (its CPU gather) level by level, exactly: with
+    keypoints on the 16-px border of the smallest level and nearer still
+    (samples clip to the level, not to the atlas), and angles of +-pi/6
+    whose sine is exactly one half, so odd pattern offsets land on .5 and
+    the rounding (half to even) decides the sample."""
+    atlas, sizes, levels = _atlas_inputs(13, batch)
+    rng = np.random.default_rng(14)
+    n_per = 24
+    xy, ang, lvl = [], [], []
+    for l, (h, w) in enumerate(sizes):
+        pts = rng.integers([0, 0], [w, h], size=(*batch, n_per, 2))
+        corners = np.array([[16, 16], [w - 17, 16], [16, h - 17], [w - 17, h - 17],
+                            [0, 0], [w - 1, h - 1], [2, h - 3], [w - 2, 5]])
+        pts[..., :8, :] = corners
+        a = rng.uniform(-np.pi, np.pi, size=(*batch, n_per)).astype(np.float32)
+        a[..., 0:8:2] = TIE_ANGLE
+        a[..., 1:8:2] = -TIE_ANGLE
+        a[..., 8] = 0.0
+        xy.append(pts.astype(np.int32)); ang.append(a); lvl.append(np.full((*batch, n_per), l, np.int32))
+    xy, ang, lvl = (np.concatenate(v, axis=len(batch)) for v in (xy, ang, lvl))
+
+    # the premise: both packages take the same sine and cosine of the tie
+    # angle, and rotated pattern points do land on .5 and outside the level
+    t = torch.tensor([TIE_ANGLE, -TIE_ANGLE])
+    j = jnp.asarray([TIE_ANGLE, -TIE_ANGLE])
+    np.testing.assert_array_equal(torch.sin(t).numpy(), np.asarray(jnp.sin(j)))
+    np.testing.assert_array_equal(torch.cos(t).numpy(), np.asarray(jnp.cos(j)))
+    assert abs(float(torch.sin(t)[0])) == 0.5
+    px, py = ck.PATTERN_XY[:, 0], ck.PATTERN_XY[:, 1]
+    rx = px * np.float32(np.cos(TIE_ANGLE)) - py * np.float32(0.5)
+    assert (np.abs(rx - np.floor(rx)) == 0.5).sum() >= 4
+    assert (16 + np.round(rx)).min() < 0  # a border keypoint's samples clip
+
+    before = ck.brief_sample.launches
+    out = ck.brief_sample(torch.from_numpy(atlas), sizes, torch.from_numpy(xy),
+                          torch.from_numpy(ang), torch.from_numpy(lvl))
+    assert ck.brief_sample.launches == before
+    assert out.shape == (*batch, 3 * n_per, 8) and out.dtype == torch.int32
+    got = out.numpy().view(np.uint32)
+    for l, lv in enumerate(levels):
+        rows = slice(l * n_per, (l + 1) * n_per)
+        for idx in np.ndindex(*batch):
+            ref = jorb.brief_descriptors(jnp.asarray(lv[idx]),
+                                         jnp.asarray(xy[idx][rows].astype(np.float32)),
+                                         jnp.asarray(ang[idx][rows]))
+            np.testing.assert_array_equal(got[idx][rows], np.asarray(ref))
+
+
+def test_atlas_sampler_plain_is_brief_coords_per_level():
+    """The atlas form is ``brief_coords`` at each level's (h, w) followed by
+    the gather on that level's window, whatever the order of the levels."""
+    atlas, sizes, _ = _atlas_inputs(15, ())
+    rng = np.random.default_rng(16)
+    n = 40
+    lvl = rng.integers(0, 3, n).astype(np.int32)
+    hw = np.asarray(sizes)[lvl]
+    xy = (rng.uniform(size=(n, 2)) * hw[:, ::-1]).astype(np.int32)
+    ang = rng.uniform(-np.pi, np.pi, n).astype(np.float32)
+    at = torch.from_numpy(atlas)
+    out = ck.brief_sample(at, sizes, torch.from_numpy(xy), torch.from_numpy(ang), torch.from_numpy(lvl))
+    for l, (view, (h, w)) in enumerate(zip(timage.level_views(at, sizes), sizes)):
+        m = lvl == l
+        gy, gx = torb.brief_coords(h, w, torch.from_numpy(xy[m]), torch.from_numpy(ang[m]))
+        assert torch.equal(out[torch.from_numpy(m)], ck.brief_sample_plain(view.contiguous(), gy, gx))
+
+
+def test_atlas_tables_are_cached_and_stack():
+    """``build_atlas`` lives in ``ops/image.py`` (``ops/stereo.py`` keeps the
+    name); its device tables are made once per level sizes and device."""
+    from orb_slam3_noted_tpu_torch.ops import stereo as tstereo
+
+    assert tstereo.build_atlas is timage.build_atlas and tstereo.PyramidAtlas is timage.PyramidAtlas
+    _, sizes, levels = _atlas_inputs(17, ())
+    a = timage.build_atlas(tuple(torch.from_numpy(lv) for lv in levels))
+    b = timage.build_atlas(tuple(torch.from_numpy(lv * 0.5) for lv in levels))
+    assert a.sizes == sizes and a.off is b.off and a.h is b.h and a.w is b.w
+    assert a.off.tolist() == timage.level_offsets(sizes) == [0, 37, 68]
+    pair = timage.stack_atlases([a, b])
+    assert pair.image.shape == (2, 94, 61) and pair.sizes == sizes
+    assert torch.equal(pair.image[1], b.image)
+    with pytest.raises(ValueError):
+        timage.stack_atlases([a, timage.build_atlas((torch.zeros(8, 9),))])
 
 
 def test_wrappers_run_plain_on_cpu_and_count_nothing(jax_levels):
@@ -151,8 +311,8 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(jax_levels):
     lv = torch.from_numpy(jax_levels[0])
     ck.fast_score(lv)
     blur = ck.gaussian_blur7(lv)
-    zeros = torch.zeros((4, 512), dtype=torch.int32)
-    ck.brief_sample(blur, zeros, zeros)
+    ck.brief_sample(blur, (tuple(lv.shape),), torch.zeros((4, 2), dtype=torch.int32),
+                    torch.zeros(4), torch.zeros(4, dtype=torch.int32))
     torb.extract_orb(lv, n_features=300)
     i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
     sads = ck.sad_stereo(lv, blur, i32(20, 30), i32(40, 50), i32(35, 48), i32(0, 0),

@@ -229,6 +229,34 @@ def test_rgbd_localization_slice(laps, frames):
                                   "sad_stereo": 0}
 
 
+def test_shared_constant_tensors_survive_a_lap(laps):
+    """The camera parameters, the level tables and the per-slot levels are
+    one cached tensor each, shared by every frame (and aliased by
+    ``FrameFeatures.level``): after the lap each still holds the values a
+    fresh one gets, so nothing on the path wrote into one in place."""
+    from orb_slam3_noted_tpu_torch.ops import fast as tfast
+    from orb_slam3_noted_tpu_torch.ops import image as timage
+
+    ts = laps[1]
+    cfg, cpu = ts.cfg, torch.device("cpu")
+    sizes = tuple(timage.pyramid_sizes(H, W, cfg.n_levels, cfg.scale_factor))
+    budgets = tuple(tfast.level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor))
+    hits = torb._level_of_feature.cache_info().hits
+    pairs = [
+        (ts.cam.params_array(torch.float32, cpu), torch.tensor(PARAMS, dtype=torch.float32)),
+        (ttr._scale_table(cfg, ts.m.mp_pos),
+         torch.tensor(torb.scale_factors(cfg.n_levels, cfg.scale_factor), dtype=torch.float32)),
+        (torb._level_of_feature(budgets, cpu), torb._level_of_feature.__wrapped__(budgets, cpu)),
+        (torb._level_to_image_scale(sizes, torch.float32, cpu),
+         torch.tensor([(W / w, H / h) for h, w in sizes], dtype=torch.float32)),
+        *zip(timage.level_tables(sizes, cpu), timage.level_tables.__wrapped__(sizes, cpu)),
+    ]
+    # the lap made these very entries: the lookups above were cache hits
+    assert torb._level_of_feature.cache_info().hits == hits + 1
+    for cached, fresh in pairs:
+        assert cached.data_ptr() != fresh.data_ptr() and torch.equal(cached, fresh)
+
+
 def test_unported_paths_raise(frames):
     from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM, StereoSLAM
 
