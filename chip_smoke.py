@@ -9,12 +9,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
 2. build: ``nvcc`` compiles ``orb_slam3_noted_tpu_torch/csrc/*.cu`` for
    ``sm_90a`` (time and ``ptxas -v`` output);
 3. kernels against their plain PyTorch versions on the card, on lap frame
-   0's pair: K1 FAST score at the 8 pyramid levels of a 752x480 frame; K2
-   7-tap blur and K3 rBRIEF, one launch each over the pyramid atlas with
-   the 1200 detected keypoints, for one image (B = 1) and the stacked pair
-   (B = 2), plus their single-level forms; K1 and K3 must agree exactly, K2
-   within ``K2_ATOL``.  K4 stereo SAD on the atlases of both pyramids, the
-   1200 left keypoints and their Hamming candidates, and again with those
+   0's pair: K1 FAST corner candidates, K2 7-tap blur and K3 rBRIEF, one
+   launch each over the pyramid atlas of a 752x480 frame (8 levels, 1,182
+   cells, the 1200 detected keypoints), for one image (B = 1) and the
+   stacked pair (B = 2), plus their single-level forms (K1's is the dense
+   score map of each level); K1 and K3 must agree exactly, K2 within
+   ``K2_ATOL``.  K4 stereo SAD on the atlases of both pyramids, the 1200
+   left keypoints and their Hamming candidates, and again with those
    centres on atlases of uniform noise; within ``K4_ATOL`` and the same
    best shift for ``K4_ARGMIN_SHARE`` of the keypoints.  Every kernel gets
    three times: its device time (the kernel's own duration from
@@ -22,19 +23,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
    around one wrapper call: the host path with the device waiting) and its
    host enqueue time; the plain version and the one PyTorch library call
    that computes the same function where there is one (K2: reflect pad +
-   two ``conv2d`` per level) get device and per-call times; and each
-   kernel's bound on this card follows from the bytes it must move and the
-   operations it must do;
+   two ``conv2d`` per level) get device and per-call times; each kernel's
+   bound on this card follows from the bytes it must move and the
+   operations it must do, and stands beside ``launch_floor_ms``, the device
+   time of an empty kernel timed the same way (the least any launch lasts);
 4. the RGB-D lap: ``RGBDSLAM`` in localisation mode on ``cuda`` over 48
-   frames of the stereo bench configuration, launch counts per frame 8 for
-   K1, 1 for K2 and K3, 0 for K4, tracked frames and metric RMSE against
+   frames of the stereo bench configuration, launch counts per frame 1 for
+   K1, K2 and K3, 0 for K4, tracked frames and metric RMSE against
    ground truth
    within the thresholds derived from the JAX package's run of the same lap
    (``tests/fixtures/rgbd_localization_lap.json``), and every frame's state
    and position within ``POS_TOL_M`` of that run;
 5. the stereo lap: ``StereoSLAM`` on ``cuda`` over the 48 rectified pairs
    of the same trajectory, full SLAM (keyframe insertion, local BA), launch
-   counts per frame 16 for K1 and 1 for K2, K3 and K4, and tracked frames,
+   counts per frame 1 for each of K1 to K4 (the pair is one batch of two), and tracked frames,
    RMSE, keyframe count and the initial map's size within the thresholds
    derived from the JAX package's run
    (``tests/fixtures/stereo_slam_lap.json``);
@@ -80,8 +82,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
 KERNEL_SOURCES = {
-    "fast_score": ("orb_slam3_noted_tpu_torch/csrc/fast_score.cu",
-                   "orb_slam3_noted_tpu/ops/pallas_kernels.py:55"),
+    "fast_candidates": ("orb_slam3_noted_tpu_torch/csrc/fast_score.cu",
+                        "orb_slam3_noted_tpu/ops/pallas_kernels.py:55"),
     "gaussian_blur7": ("orb_slam3_noted_tpu_torch/csrc/gaussian_blur7.cu",
                        "orb_slam3_noted_tpu/ops/pallas_kernels.py:189"),
     "brief_sample": ("orb_slam3_noted_tpu_torch/csrc/brief_sample.cu",
@@ -207,49 +209,123 @@ def reference_times(fn, prefix: str) -> dict:
     return {f"{prefix}_ms": device_time_ms(fn), f"{prefix}_per_call_ms": cuda_time_ms(fn)}
 
 
+def extraction_args(cfg) -> dict:
+    return dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+                th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast)
+
+
+def pair_atlas(cfg, left_u8, right_u8, dev):
+    """(pyramid, atlas) of the stacked pair, as the stereo facade builds them."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import image as image_ops
+
+    im = torch.as_tensor(np.stack([left_u8, right_u8]), dtype=torch.float32).to(dev)
+    pyr = tuple(image_ops.build_pyramid(im, cfg.n_levels, cfg.scale_factor))
+    return pyr, image_ops.build_atlas(pyr)
+
+
+def compass_pass_count(levels, th_low: float, border: int) -> int:
+    """Pixels of the scored area (the kept area and one pixel around it) of
+    these levels whose FAST score can exceed ``th_low``: two neighbouring
+    compass points of the ring both brighter than the centre by more than
+    ``th_low``, or both darker.  K1 takes the full score of these alone."""
+    import torch
+
+    n = 0
+    for lv in levels:
+        h, w = lv.shape
+        d = [torch.roll(lv, (-dy, -dx), (0, 1)) - lv for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+        ok = torch.zeros_like(lv, dtype=torch.bool)
+        for side in ([x > th_low for x in d], [x < -th_low for x in d]):
+            for a in range(4):
+                ok |= side[a] & side[(a + 1) % 4]
+        n += int(ok[border - 1:h - border + 1, border - 1:w - border + 1].sum())
+    return n
+
+
+def check_launch_floor(dev) -> float:
+    """Device time of the empty kernel, timed as every kernel here is."""
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+    return device_time_ms(lambda: ck.launch_floor(dev), "launch_floor_kernel")
+
+
 def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
-    """K1-K3 against their plain versions at the lap's shapes.  K1 runs
-    once per level: its times and bound are sums over the 8 levels of one
-    image.  K2 and K3 run once over the pyramid atlas: their main numbers
-    are for one image (B = 1, the RGB-D lap's shape), the ``*_pair`` ones
-    for the stacked stereo pair (B = 2); the single-level forms are
-    checked too."""
+    """K1-K3 against their plain versions at the lap's shapes, each one
+    launch over the pyramid atlas: the main numbers are for one image
+    (B = 1, the RGB-D lap's shape), the ``*_pair`` ones for the stacked
+    stereo pair (B = 2); the single-level forms are checked too."""
     import torch
     import torch.nn.functional as F
 
     from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
     from orb_slam3_noted_tpu_torch.ops import image as image_ops
     from orb_slam3_noted_tpu_torch.ops import orb as O
 
-    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
-              th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast)
-    pyrs = [tuple(lv.contiguous() for lv in image_ops.build_pyramid(
-        torch.as_tensor(img, dtype=torch.float32, device=dev), cfg.n_levels, cfg.scale_factor))
-        for img in (left_u8, right_u8)]
-    atlases = [image_ops.build_atlas(p) for p in pyrs]
-    dets = [O.detect_from_pyramid(p, **kw) for p in pyrs]
-    one, pair = atlases[0], image_ops.stack_atlases(atlases)
-    det_pair = O.Detections(*(torch.stack(f) for f in zip(*dets)))
+    kw = extraction_args(cfg)
+    pyr, pair = pair_atlas(cfg, left_u8, right_u8, dev)
+    one = pair._replace(image=pair.image[0])
+    pyrs = [tuple(lv[b].contiguous() for lv in pyr) for b in range(2)]
+    det_pair = O.detect_from_atlas(pair, **kw)
+    dets = [O.Detections(*(f[b] for f in det_pair)) for b in range(2)]
     sizes = one.sizes
     px = sum(h * w for h, w in sizes)
     K = dets[0].xy.shape[0]
     log(f"  atlas {tuple(one.image.shape)}, levels {sizes}, {K} keypoints an image")
     res = {}
 
-    # --- K1, level by level --------------------------------------------------
-    r = {"max_abs_err": 0.0, "mismatches": 0, "ms": 0.0, "per_call_ms": 0.0, "host_ms": 0.0,
-         "plain_ms": 0.0, "plain_per_call_ms": 0.0, "library_ms": None}
-    for lv in pyrs[0]:
-        score, plain = ck.fast_score(lv), ck.fast_score_plain(lv)
-        r["max_abs_err"] = max(r["max_abs_err"], float((score - plain).abs().max()))
-        r["mismatches"] += int((score != plain).sum())
-        for k, v in (kernel_times(lambda: ck.fast_score(lv), "fast_score")
-                     | reference_times(lambda: ck.fast_score_plain(lv), "plain")).items():
-            r[k] += v
-    # read + write one float per pixel; 16 ring differences, 2 x 16 arcs of
-    # 8 min each, 2 x 15 max, 1 max
-    r["bytes"], r["ops"] = 8 * px, (16 + 256 + 31) * px
-    res["fast_score"] = r
+    # --- K1 over the atlas, and its dense single-level form --------------------
+    budgets = tuple(fast_ops.level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor))
+    th, border = (cfg.ini_th_fast, cfg.min_th_fast), 16
+    lay = ck.candidate_layout(sizes, budgets)
+
+    def cand_diff(image):
+        (s, i), (ps, pi) = (ck.fast_candidates(image, sizes, budgets, *th, border),
+                            ck.fast_candidates_plain(image, sizes, budgets, *th, border))
+        torch.cuda.synchronize()
+        filled = ps > fast_ops.NEG / 2
+        return (float((s - ps).abs().max()), int((s != ps).sum()) + int(((i != pi) & filled).sum()),
+                int((i != pi).sum()), int(filled.sum()))
+
+    err, mism, idx_all, n_cand = cand_diff(one.image)
+    err2, mism2, idx_all2, n_cand2 = cand_diff(pair.image)
+    dense = [(ck.fast_score(lv), ck.fast_score_plain(lv)) for lv in pyrs[0]]
+    mism1 = sum(int((a != b).sum()) for a, b in dense)
+    log(f"  fast_candidates: {lay.n_cells} cells x {lay.k_max} slots (k per level {lay.k}); B=1 "
+        f"{mism} of {n_cand} candidates differ ({idx_all} indices over all slots), B=2 {mism2} of "
+        f"{n_cand2} ({idx_all2}); dense score map, 8 levels: {mism1} of {px} pixels differ")
+
+    def replaced():  # the per-level route this launch replaces: K1 dense + selection's first half
+        return [fast_ops.cell_candidates(ck.fast_score(lv), n, ck.CELL, *th, border)
+                for lv, n in zip(pyrs[0], budgets)]
+
+    scored = sum((h - 2 * border + 2) * (w - 2 * border + 2) for h, w in sizes)
+    n_full = compass_pass_count(pyrs[0], th[1], border)
+    log(f"  fast_candidates: {n_full} of {scored} scored pixels pass the compass test and get "
+        f"the full score")
+    r = {"max_abs_err": max(err, err2), "mismatches": mism + mism2 + mism1,
+         **kernel_times(lambda: ck.fast_candidates(one.image, sizes, budgets, *th, border),
+                        "fast_candidates"),
+         **reference_times(
+             lambda: ck.fast_candidates_plain(one.image, sizes, budgets, *th, border), "plain"),
+         **reference_times(replaced, "replaced"),
+         "dense_ms": sum(device_time_ms(lambda: ck.fast_score(lv), "fast_score_kernel")
+                         for lv in pyrs[0]),
+         "library_ms": None,
+         # every level pixel read once, scores and indices written; per scored
+         # pixel (the kept area and one pixel around it) the compass test (4
+         # differences, 8 comparisons, 15 logical operations) and the peak
+         # test's 8 maxima and 3 comparisons; per pixel of this frame that
+         # passes the compass test the other 12 ring differences, 4 x 16
+         # minima and as many maxima, 2 x 15 + 1 to reduce them
+         "bytes": 4 * px + 8 * lay.n_cells * lay.k_max,
+         "ops": (27 + 11) * scored + (12 + 128 + 31) * n_full}
+    r.update({k + "_pair": v for k, v in kernel_times(
+        lambda: ck.fast_candidates(pair.image, sizes, budgets, *th, border),
+        "fast_candidates").items()})
+    res["fast_candidates"] = r
 
     # --- K2 over the atlas ---------------------------------------------------
     def blur_diff(out, ref):
@@ -328,7 +404,7 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
     res["brief_sample"] = r
 
     torch.cuda.synchronize()
-    if res["fast_score"]["mismatches"] or res["brief_sample"]["mismatches"]:
+    if res["fast_candidates"]["mismatches"] or res["brief_sample"]["mismatches"]:
         raise AssertionError("K1/K3 must match their plain versions exactly")
     if res["gaussian_blur7"]["max_abs_err"] > K2_ATOL:
         raise AssertionError(f"K2 differs from its plain version by more than {K2_ATOL}")
@@ -342,21 +418,16 @@ def check_sad(cfg, left_u8, right_u8, dev) -> dict:
     import torch
 
     from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
-    from orb_slam3_noted_tpu_torch.ops import image as image_ops
     from orb_slam3_noted_tpu_torch.ops import orb as O
     from orb_slam3_noted_tpu_torch.ops import stereo as S
 
-    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
-              th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast)
-    pyrs, feats = [], []
-    for img in (left_u8, right_u8):
-        im = torch.as_tensor(img, dtype=torch.float32, device=dev)
-        pyrs.append(tuple(image_ops.build_pyramid(im, cfg.n_levels, cfg.scale_factor)))
-        feats.append(O.extract_from_pyramid(pyrs[-1], **kw))
+    pyr, pair = pair_atlas(cfg, left_u8, right_u8, dev)
+    both = O.extract_from_atlas(pair, **extraction_args(cfg))
+    feats = [O.FrameFeatures(*(f[b] for f in both)) for b in range(2)]
     idx_r, have = S.hamming_candidates(feats[0], feats[1], cfg.bf, BASELINE,
                                        cfg.n_levels, cfg.scale_factor)
-    cv, cu, cur, _ = S.level_centres(feats[0], feats[1], idx_r, pyrs[0])
-    al, ar = S.build_atlas(pyrs[0]), S.build_atlas(pyrs[1])
+    cv, cu, cur, _ = S.level_centres(feats[0], feats[1], idx_r, tuple(p[0] for p in pyr))
+    al, ar = (pair._replace(image=pair.image[b]) for b in range(2))
     args = (al.image, ar.image, cv, cu, cur, feats[0].level.contiguous(), al.off, al.h, al.w)
     sads = ck.sad_stereo(*args)
     torch.cuda.synchronize()
@@ -447,7 +518,8 @@ def run_rgbd_lap(cfg, poses, frames, ref, dev) -> dict:
         f"(JAX {ref['rmse_m']:.5f}), max |dp| vs JAX {pos_diff.max():.3e} m, "
         f"median {np.median(ms[1:]):.2f} ms/frame after the initialisation frame")
     log(f"[rgbd] launches {launches}")
-    want = {"fast_score": 8 * n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0}
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
+            "fast_score": 0}
     check_common("rgbd lap", ref, launches, want, tracked, rmse)
     if state_diff:
         raise AssertionError(f"rgbd lap: states differ from the JAX run at frames {state_diff}")
@@ -499,7 +571,8 @@ def run_stereo_lap(cfg, poses, frames, ref, dev) -> dict:
         f"insertion ({int((steady & ~kf).sum())} frames), "
         f"{np.median(ms[steady & kf]):.2f} ms/frame with one ({int((steady & kf).sum())} frames)")
     log(f"[stereo] launches {launches}")
-    want = {"fast_score": 16 * n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": n}
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": n,
+            "fast_score": 0}
     check_common("stereo lap", ref, launches, want, tracked, rmse)
     if abs(slam.n_kf - ref["n_kf"]) > KF_MARGIN or slam.n_kf < KF_MIN:
         raise AssertionError(f"stereo lap: {slam.n_kf} keyframes, JAX run {ref['n_kf']}")
@@ -546,19 +619,29 @@ def main() -> int:
     log(f"[lap] rendered {N_FRAMES} stereo pairs with depth in {time.perf_counter() - t0:.1f} s")
 
     log("[kernels] kernel vs plain version on the card, lap frame 0")
+    floor = check_launch_floor(dev)
+    log(f"  launch floor: an empty kernel lasts {floor:.5f} ms on the device")
     kres = check_kernels(cfg, frames[0][0], frames[0][1], dev)
     kres["sad_stereo"] = check_sad(cfg, frames[0][0], frames[0][1], dev)
     for r in kres.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
+        # each kernel is one launch: it cannot end sooner than an empty one
+        r["launch_floor_ms"] = floor
+        r["bound_or_launch_floor_ms"] = max(r["bound_ms"], floor)
     ms = lambda v: "none" if v is None else f"{v:.4f}"
     log("  times in ms: device (the kernels' own durations, torch.profiler) / per call "
-        "(CUDA events around one call); K1 summed over 8 levels, K2-K3 one image")
+        "(CUDA events around one call); K1-K3 one image's atlas")
     for name, r in kres.items():
         log(f"  {name:<15} mismatches {r['mismatches']:>4}  max_abs_err {r['max_abs_err']:.3g}  "
             f"kernel {ms(r['ms'])} / {ms(r['per_call_ms'])} (host {ms(r['host_ms'])})  "
             f"plain {ms(r['plain_ms'])} / {ms(r['plain_per_call_ms'])}  "
             f"library {ms(r['library_ms'])} / {ms(r.get('library_per_call_ms'))}  "
-            f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+            f"bound {r['bound_ms']:.5f} ({r['bound_by']}), with the launch floor "
+            f"{r['bound_or_launch_floor_ms']:.5f}")
+        if "replaced_ms" in r:
+            log(f"  {'':<15} the 8 dense launches and 8 PyTorch cell_candidates it replaces: "
+                f"{ms(r['replaced_ms'])} / {ms(r['replaced_per_call_ms'])}, of which the dense "
+                f"kernel {ms(r['dense_ms'])}")
         if "ms_pair" in r:
             log(f"  {'':<15} stereo pair (B=2): kernel {ms(r['ms_pair'])} / "
                 f"{ms(r['per_call_ms_pair'])} (host {ms(r['host_ms_pair'])})")

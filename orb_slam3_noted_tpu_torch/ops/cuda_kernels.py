@@ -4,19 +4,24 @@ helper.
 
 Port of :mod:`orb_slam3_noted_tpu.ops.pallas_kernels`:
 
-========================  ==============================  =======================
+========================  ==============================  ===============================
 wrapper                   CUDA source (``csrc/``)          plain version
-========================  ==============================  =======================
+========================  ==============================  ===============================
+:func:`fast_candidates`   ``fast_score.cu``                :func:`fast_candidates_plain`
 :func:`fast_score`        ``fast_score.cu``                :func:`fast_score_plain`
 :func:`gaussian_blur7`    ``gaussian_blur7.cu``            :func:`gaussian_blur7_plain`
 :func:`brief_sample`      ``brief_sample.cu``              :func:`brief_sample_plain`
 :func:`sad_stereo`        ``sad_stereo.cu``                :func:`sad_stereo_plain`
-========================  ==============================  =======================
+========================  ==============================  ===============================
 
-K2 and K3 work on a pyramid atlas (:class:`..image.PyramidAtlas`: the levels
+K1 to K3 work on a pyramid atlas (:class:`..image.PyramidAtlas`: the levels
 of one pyramid stacked along the rows of one image) and take its level
 sizes as host integers, so one launch serves every level of every image of
-a batch; a single image is the one-level atlas.
+a batch; a single image is the one-level atlas.  K1 on the extraction path
+is :func:`fast_candidates` (atlas in, per-cell corner candidates out);
+:func:`fast_score`, the dense score map of one image, is its single-level
+form over the same scoring function.  :func:`launch_floor` launches an empty
+kernel: the least a launch lasts on the card.
 
 Dispatch is by the tensor's device: a CPU tensor goes to the plain version,
 a CUDA tensor launches the kernel, or raises if the build or the launch
@@ -40,6 +45,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -111,13 +117,17 @@ def _library() -> ctypes.CDLL:
     so, _ = build_library()
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
+    f = ctypes.c_float
+    lib.orb_launch_floor.argtypes = [p]
     lib.orb_fast_score.argtypes = [p, p, i, i, i, p]
+    lib.orb_fast_candidates.argtypes = [p, p, p, i, i, i, i, p, p, i, i, f, f, i, p]
     lib.orb_gaussian_blur7.argtypes = [p, p, p, i, i, i, i, p, p]
     lib.orb_brief_set_pattern.argtypes = [p]
     lib.orb_brief_sample.argtypes = [p, p, p, p, p, i, i, i, i, i, p, p]
     lib.orb_sad_stereo.argtypes = [p] * 10 + [i] * 5 + [p]
-    for fn in (lib.orb_fast_score, lib.orb_gaussian_blur7, lib.orb_brief_set_pattern,
-               lib.orb_brief_sample, lib.orb_sad_stereo):
+    for fn in (lib.orb_launch_floor, lib.orb_fast_score, lib.orb_fast_candidates,
+               lib.orb_gaussian_blur7, lib.orb_brief_set_pattern, lib.orb_brief_sample,
+               lib.orb_sad_stereo):
         fn.restype = ctypes.c_int
     return lib
 
@@ -177,10 +187,20 @@ def _level_sizes(sizes: tuple, H: int, W: int, min_side: int):
 
 
 # ---------------------------------------------------------------------------
-# K1: FAST-9/16 score
+# the least a launch lasts
+# ---------------------------------------------------------------------------
+
+def launch_floor(device: torch.device) -> None:
+    """Launch the empty kernel (one block, one thread) on ``device``."""
+    _launch(_library().orb_launch_floor, "launch_floor", torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# K1: FAST-9/16 corner candidates over an atlas; the dense score of one image
 # ---------------------------------------------------------------------------
 
 fast_score_plain = fast_ops.fast_score
+CELL = 32  # kCell of csrc/fast_score.cu: side of a selection cell
 
 
 def fast_score(img: torch.Tensor) -> torch.Tensor:
@@ -198,6 +218,85 @@ def fast_score(img: torch.Tensor) -> torch.Tensor:
 
 
 fast_score.launches = 0
+
+
+class CandidateLayout(NamedTuple):
+    """Where each level's cells lie in the (NC, KC) candidate arrays of
+    :func:`fast_candidates`: level l owns cells ``first[l]:first[l + 1]``, a
+    grid with ``per_row[l]`` columns, and the slots ``:k[l]`` of each.  A
+    level with budget 0 has k = 0 and no cells."""
+
+    first: tuple
+    per_row: tuple
+    k: tuple
+    n_cells: int
+    k_max: int
+
+
+@functools.lru_cache(maxsize=64)
+def candidate_layout(sizes: tuple, budgets: tuple) -> CandidateLayout:
+    """The layout for levels of these ``sizes`` ((h_l, w_l), ...) and
+    per-level corner ``budgets`` (the ``n_out`` of ``fast.detect_level``)."""
+    if len(budgets) != len(sizes):
+        raise ValueError(f"fast_candidates: {len(budgets)} budgets for {len(sizes)} levels")
+    first, per_row, k = [0], [], []
+    for (h, w), n_out in zip(sizes, budgets):
+        ncy, ncx = fast_ops.cell_grid(h, w, CELL)
+        live = n_out > 0
+        per_row.append(ncx)
+        k.append(fast_ops.candidates_per_cell(n_out, ncy * ncx, CELL) if live else 0)
+        first.append(first[-1] + (ncy * ncx if live else 0))
+    return CandidateLayout(tuple(first), tuple(per_row), tuple(k), first[-1], max(k))
+
+
+def fast_candidates_plain(atlas, sizes, budgets, th_high=20.0, th_low=7.0, border=16):
+    """Level by level: :func:`fast_score_plain` on the level's window of the
+    atlas, then :func:`..fast.cell_candidates`; the levels' cells side by
+    side, slots from a level's k on filled with ``NEG`` and index 0."""
+    lay = candidate_layout(sizes, tuple(budgets))
+    batch = atlas.shape[:-2]
+    cand_s = torch.full((*batch, lay.n_cells, lay.k_max), fast_ops.NEG, dtype=torch.float32,
+                        device=atlas.device)
+    cand_i = torch.zeros((*batch, lay.n_cells, lay.k_max), dtype=torch.int32, device=atlas.device)
+    for l, (view, n_out) in enumerate(zip(image_ops.level_views(atlas, sizes), budgets)):
+        if lay.k[l] == 0:
+            continue
+        s, i = fast_ops.cell_candidates(fast_score_plain(view), n_out, CELL, th_high, th_low, border)
+        cand_s[..., lay.first[l]:lay.first[l + 1], :lay.k[l]] = s
+        cand_i[..., lay.first[l]:lay.first[l + 1], :lay.k[l]] = i
+    return cand_s, cand_i
+
+
+def fast_candidates(atlas, sizes, budgets, th_high=20.0, th_low=7.0, border=16):
+    """Corner candidates of every 32 x 32 cell of every level of an (HA, W0)
+    or (B, HA, W0) float32 pyramid atlas with level ``sizes``, in one launch:
+    (cand_s, cand_i), both (..., NC, KC) as :func:`candidate_layout` lays them
+    out for the per-level corner ``budgets``: float32 scores, best first,
+    equal scores lowest index first (``NEG`` = -1e30 in empty slots), and
+    int32 in-cell indices ``cy * 32 + cx``.  What
+    :func:`..fast.cell_candidates` gives for each level's FAST score map."""
+    if not _on_card(atlas, "fast_candidates"):
+        return fast_candidates_plain(atlas, sizes, budgets, th_high, th_low, border)
+    _check(atlas, "fast_candidates", torch.float32, 2, 3)
+    if border < 4:  # ring radius 3 + the peak test's 1: no ring may leave its level
+        raise ValueError(f"fast_candidates: border {border} < 4")
+    B = atlas.shape[0] if atlas.dim() == 3 else 1
+    HA, W = atlas.shape[-2:]
+    hw = _level_sizes(sizes, HA, W, 2 * border + 1)
+    lay = candidate_layout(sizes, tuple(budgets))
+    shape = (*atlas.shape[:-2], lay.n_cells, lay.k_max)
+    cand_s = torch.empty(shape, dtype=torch.float32, device=atlas.device)
+    cand_i = torch.empty(shape, dtype=torch.int32, device=atlas.device)
+    if B and lay.n_cells:
+        _launch(_library().orb_fast_candidates, "fast_candidates", atlas.device,
+                atlas.data_ptr(), cand_s.data_ptr(), cand_i.data_ptr(), B, HA, W,
+                len(sizes), hw, (ctypes.c_int * len(lay.k))(*lay.k), lay.n_cells, lay.k_max,
+                float(th_high), float(th_low), int(border))
+        fast_candidates.launches += 1
+    return cand_s, cand_i
+
+
+fast_candidates.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +530,7 @@ def sad_stereo(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Ten
     HA, W = atlas_l.shape[-2:]
     K = cv.shape[-1]
     out = torch.empty((*cv.shape, SAD_SHIFTS), dtype=torch.float32, device=dev)
-    if K and off_t.shape[0]:
+    if K and B and off_t.shape[0]:
         _launch(_library().orb_sad_stereo, "sad_stereo", dev,
                 atlas_l.data_ptr(), atlas_r.data_ptr(), cv.data_ptr(), cu.data_ptr(),
                 cur.data_ptr(), lvl.data_ptr(), off_t.data_ptr(), h_t.data_ptr(),
@@ -442,7 +541,8 @@ def sad_stereo(atlas_l, atlas_r, cv, cu, cur, lvl, off_t, h_t, w_t) -> torch.Ten
 
 sad_stereo.launches = 0
 
-KERNELS = (fast_score, gaussian_blur7, brief_sample, sad_stereo)
+# K1 to K4 as the frame path launches them, then K1's single-level form
+KERNELS = (fast_candidates, gaussian_blur7, brief_sample, sad_stereo, fast_score)
 
 
 def reset_launch_counts() -> None:

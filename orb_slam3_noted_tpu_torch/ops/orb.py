@@ -1,12 +1,17 @@
 """ORB extraction: IC-angle orientation, rBRIEF descriptors, full pyramid.
 
-Port of :mod:`orb_slam3_noted_tpu.ops.orb`, in two steps.  Detection, per
-level: the FAST score map (kernel K1), corner selection (:mod:`.fast`) and
-intensity-centroid angles from row prefix sums.  Description, once for all
-levels (and for both images of a stereo pair): the 7-tap blur of the
-pyramid atlas (kernel K2) and rBRIEF sampling of every keypoint on it
-(kernel K3), which rotates the pattern by the keypoint's angle as the JAX
-package does ahead of its Pallas sampler.
+Port of :mod:`orb_slam3_noted_tpu.ops.orb`, in two steps over the pyramid
+atlas (:class:`..image.PyramidAtlas`), each once for all levels (and for
+both images of a stereo pair).  Detection (:func:`detect_from_atlas`):
+per-cell FAST corner candidates (kernel K1), the per-level selection of
+:mod:`.fast`, and intensity-centroid angles from row prefix sums, read at
+the keypoints only (:func:`ic_angles_atlas`).  Description
+(:func:`describe`): the 7-tap blur of the atlas (kernel K2) and rBRIEF
+sampling of every keypoint on it (kernel K3), which rotates the pattern by
+the keypoint's angle as the JAX package does ahead of its Pallas sampler.
+:func:`detect_from_pyramid`, :func:`ic_angle_maps` and :func:`ic_angles` are
+the level-by-level forms of the JAX package, which the atlas forms equal
+bit for bit on the CPU.
 
 Every function takes an optional leading batch dimension; a (B, H, W) image
 batch gives FrameFeatures with a leading B, as the JAX package's ``vmap``
@@ -96,6 +101,76 @@ def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return torch.atan2(_at(m01, xy), _at(m10, xy))
 
 
+@functools.lru_cache(maxsize=8)
+def _angle_tables(sizes: tuple, W0: int, device: torch.device):
+    """Constants of :func:`ic_angles_atlas` for an atlas of these level
+    ``sizes`` and width: the (HA, W0) mask of the levels' own pixels, and per
+    patch row dy = -15..15 the row offset (31,) int64, the half span
+    ``umax[|dy|]`` as int64 and as float32, and dy as float32."""
+    inside = torch.cat([(torch.arange(W0) < w).expand(h, W0) for h, w in sizes])
+    dy = torch.arange(-HALF_PATCH, HALF_PATCH + 1)
+    span = torch.from_numpy(_umax_table())[dy.abs()]
+    return tuple(t.to(device) for t in (inside, dy, span, span.to(torch.float32),
+                                        dy.to(torch.float32)))
+
+
+def ic_angles_atlas(atlas: image_ops.PyramidAtlas, xy: torch.Tensor, level: torch.Tensor,
+                    runs: tuple) -> torch.Tensor:
+    """Orientation (radians) of keypoints ``xy`` (..., N, 2), integer-valued
+    coordinates at their own ``level`` (..., N), on a (..., HA, W0) atlas.
+    ``runs``: lengths that add up to N, a level's keypoints each; the
+    arctangent is taken run by run and image by image, because the CPU's
+    vectorised ``atan2`` rounds an element by its place in the call.
+
+    The arithmetic of :func:`ic_angle_maps`, evaluated only where it is
+    read: the two prefix sums run once over the whole centred atlas (zero
+    outside every level's width, 16 zero columns on each side), the four
+    prefix values per patch row are gathered at the keypoints, and the 31
+    rows are added one at a time in the map's order, rows outside the level
+    adding zero.  On the CPU this is ``ic_angles`` of each level bit for bit.
+    """
+    P = HALF_PATCH + 1
+    img = atlas.image
+    W0 = img.shape[-1]
+    WP = W0 + 2 * P
+    inside, dy, span, span_f, dy_f = _angle_tables(atlas.sizes, W0, img.device)
+    C1 = torch.cumsum(F.pad(torch.where(inside, img - 128.0, 0.0), (P, P)), dim=-1)
+    C2 = torch.cumsum(C1, dim=-1)
+
+    lv = level.long()
+    h, w, off = atlas.h.long()[lv], atlas.w.long()[lv], atlas.off.long()[lv]
+    # a slot's position as the level's flat index gives it (``_at``): a
+    # column past the level's width, which only an empty slot has, wraps
+    flat = torch.clamp(xy[..., 1].long() * w + xy[..., 0].long(), max=h * w - 1)
+    y, x = flat // w, flat % w
+    rows = y[..., None] + dy                                    # (..., N, 31)
+    in_level = (rows >= 0) & (rows < h[..., None])
+    base = (off[..., None] + torch.clamp(rows, min=0)).clamp(max=img.shape[-2] - 1) * WP \
+        + (x[..., None] + P)
+
+    def at(C, k):  # C(row, x + k) for every keypoint and patch row
+        return torch.gather(C.flatten(-2), -1, (base + k).flatten(-2)).reshape(base.shape)
+
+    c1p, c1m = at(C1, span), at(C1, -span - 1)
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    Bw = torch.where(in_level, dy_f * (c1p - c1m), zero)
+    Tw = torch.where(in_level, span_f * (c1p + c1m) - at(C2, span - 1) + at(C2, -span - 1), zero)
+    m10 = torch.zeros(flat.shape, dtype=img.dtype, device=img.device)
+    m01 = torch.zeros_like(m10)
+    for r in range(2 * HALF_PATCH + 1):
+        m10 = m10 + Tw[..., r]
+        if r != HALF_PATCH:
+            m01 = m01 + Bw[..., r]
+    angle = torch.empty_like(m10)
+    N = m10.shape[-1]
+    for a, b, out in zip(m01.reshape(-1, N), m10.reshape(-1, N), angle.view(-1, N)):
+        o = 0
+        for n in runs:
+            torch.atan2(a[o:o + n], b[o:o + n], out=out[o:o + n])
+            o += n
+    return angle
+
+
 brief_coords = ck.brief_coords
 
 
@@ -154,6 +229,12 @@ def extract_orb(
     )
 
 
+# profiler ranges inside extraction (free unless a torch.profiler is recording)
+SELECT_RANGE = "fast_select"
+ANGLE_RANGE = "ic_angle"
+DESCRIBE_RANGE = "describe"
+
+
 class Detections(NamedTuple):
     """Keypoints of all levels of one image before description, level after
     level, each at its own level's resolution."""
@@ -188,10 +269,11 @@ def detect_from_pyramid(
     th_high: float = 20.0,
     th_low: float = 7.0,
 ) -> Detections:
-    """FAST corners and their angles on every (..., Hl, Wl) level."""
+    """FAST corners and their angles on every (..., Hl, Wl) level, level by
+    level as the JAX package goes: dense score map, ``detect_level``,
+    ``ic_angles``."""
     batch = levels[0].shape[:-2]
-    budgets = fast_ops.level_budgets(n_features, n_levels, scale_factor)
-    budgets = tuple(max(b, 0) for b, _ in zip(budgets, levels))
+    budgets = _budgets(n_features, n_levels, scale_factor, len(levels))
     outs = []
     for level_img, budget in zip(levels, budgets):
         if budget <= 0:
@@ -204,9 +286,48 @@ def detect_from_pyramid(
         outs.append((kps.xy, ic_angles(level_img, kps.xy), kps.score, kps.valid))
     n = len(batch)  # keypoints concatenate along the axis after the batch
     xy, angle, response, valid = (torch.cat(parts, dim=n) for parts in zip(*outs))
-    level = _level_of_feature(budgets, xy.device)
-    if batch:
-        level = level.expand(*batch, -1).contiguous()
+    return Detections(xy, _levels_for(budgets, batch, xy.device), angle, response, valid)
+
+
+def _budgets(n_features: int, n_levels: int, scale_factor: float, n_present: int) -> tuple:
+    budgets = fast_ops.level_budgets(n_features, n_levels, scale_factor)
+    return tuple(max(b, 0) for b in budgets[:n_present])
+
+
+def _levels_for(budgets: tuple, batch: tuple, device: torch.device) -> torch.Tensor:
+    level = _level_of_feature(budgets, device)
+    return level.expand(*batch, -1).contiguous() if batch else level
+
+
+def detect_from_atlas(
+    atlas: image_ops.PyramidAtlas,
+    n_features: int = 1200,
+    n_levels: int = 8,
+    scale_factor: float = 1.2,
+    th_high: float = 20.0,
+    th_low: float = 7.0,
+) -> Detections:
+    """FAST corners and their angles on every level of a (..., HA, W0)
+    atlas: one K1 launch for the per-cell candidates of all levels and
+    images, the per-level selection, one pass for the angles."""
+    sizes = atlas.sizes
+    batch = atlas.image.shape[:-2]
+    budgets = _budgets(n_features, n_levels, scale_factor, len(sizes))
+    with torch.profiler.record_function(SELECT_RANGE):
+        cand_s, cand_i = ck.fast_candidates(atlas.image, sizes, budgets, th_high, th_low, 16)
+        lay = ck.candidate_layout(sizes, budgets)
+        kps = [
+            fast_ops.select_from_cells(
+                cand_s[..., lay.first[l]:lay.first[l + 1], :lay.k[l]],
+                cand_i[..., lay.first[l]:lay.first[l + 1], :lay.k[l]],
+                lay.per_row[l], n_out, ck.CELL)
+            for l, n_out in enumerate(budgets) if n_out > 0
+        ]
+        n = len(batch)  # keypoints concatenate along the axis after the batch
+        xy, response, valid = (torch.cat(parts, dim=n) for parts in zip(*kps))
+        level = _levels_for(budgets, batch, xy.device)
+    with torch.profiler.record_function(ANGLE_RANGE):
+        angle = ic_angles_atlas(atlas, xy, level, runs=tuple(b for b in budgets if b > 0))
     return Detections(xy, level, angle, response, valid)
 
 
@@ -215,15 +336,16 @@ def describe(atlas: image_ops.PyramidAtlas, det: Detections) -> FrameFeatures:
     features come out in ``det``'s order, at level-0 coordinates.  A leading
     batch dimension on both (a stereo pair) goes through the same two
     launches."""
-    blur = ck.gaussian_blur7(atlas.image, atlas.sizes)
-    desc = ck.brief_sample(blur, atlas.sizes, det.xy.to(torch.int32), det.angle, det.level)
-    # exact level->0 mapping with half-pixel centres and the actual
-    # per-axis ratio of the rounded level sizes
-    ax = _level_to_image_scale(atlas.sizes, det.xy.dtype, det.xy.device)[det.level.long()]
-    return FrameFeatures(
-        xy=(det.xy + 0.5) * ax - 0.5, level=det.level, angle=det.angle,
-        response=det.response, desc=desc, valid=det.valid,
-    )
+    with torch.profiler.record_function(DESCRIBE_RANGE):
+        blur = ck.gaussian_blur7(atlas.image, atlas.sizes)
+        desc = ck.brief_sample(blur, atlas.sizes, det.xy.to(torch.int32), det.angle, det.level)
+        # exact level->0 mapping with half-pixel centres and the actual
+        # per-axis ratio of the rounded level sizes
+        ax = _level_to_image_scale(atlas.sizes, det.xy.dtype, det.xy.device)[det.level.long()]
+        return FrameFeatures(
+            xy=(det.xy + 0.5) * ax - 0.5, level=det.level, angle=det.angle,
+            response=det.response, desc=desc, valid=det.valid,
+        )
 
 
 def extract_from_pyramid(
@@ -235,11 +357,16 @@ def extract_from_pyramid(
     th_low: float = 7.0,
 ) -> FrameFeatures:
     """ORB extraction from a prebuilt pyramid of (..., Hl, Wl) levels."""
-    det = detect_from_pyramid(
-        levels, n_features=n_features, n_levels=n_levels, scale_factor=scale_factor,
-        th_high=th_high, th_low=th_low,
+    return extract_from_atlas(
+        image_ops.build_atlas(levels), n_features=n_features, n_levels=n_levels,
+        scale_factor=scale_factor, th_high=th_high, th_low=th_low,
     )
-    return describe(image_ops.build_atlas(levels), det)
+
+
+def extract_from_atlas(atlas: image_ops.PyramidAtlas, **kw) -> FrameFeatures:
+    """ORB extraction from a pyramid atlas: K1, K2 and K3 once each, whatever
+    the number of levels and images; ``kw`` as :func:`detect_from_atlas`."""
+    return describe(atlas, detect_from_atlas(atlas, **kw))
 
 
 def extract_orb_batch(
@@ -250,8 +377,8 @@ def extract_orb_batch(
     th_high: float = 20.0,
     th_low: float = 7.0,
 ) -> FrameFeatures:
-    """ORB extraction for a (B, H, W) image batch: every kernel runs once per
-    level over the whole batch.  Fields carry a leading B."""
+    """ORB extraction for a (B, H, W) image batch: every kernel runs once
+    over the whole batch.  Fields carry a leading B."""
     if imgs.dim() != 3:
         raise ValueError(f"extract_orb_batch: expected (B, H, W), got {tuple(imgs.shape)}")
     return extract_orb(

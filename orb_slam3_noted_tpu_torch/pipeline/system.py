@@ -46,6 +46,9 @@ LOST = "LOST"
 # (free unless a torch.profiler is recording)
 EXTRACTION_RANGE = "orb_extraction"
 STEREO_RANGE = "stereo_matching"
+# inside extraction: the pyramid and its atlas here, the rest in ops/orb.py
+PYRAMID_RANGE = "pyramid"
+EXTRACTION_PARTS = (PYRAMID_RANGE, O.SELECT_RANGE, O.ANGLE_RANGE, O.DESCRIBE_RANGE)
 
 
 def _todo(what: str, step: int):
@@ -286,8 +289,14 @@ class MonoSLAM:
             th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast,
         )
 
+    def _pyramid_atlas(self, img: torch.Tensor):
+        """(pyramid, its atlas) of an (H, W) image or a (B, H, W) batch."""
+        with torch.profiler.record_function(PYRAMID_RANGE):
+            pyr = tuple(I.build_pyramid(img, self.cfg.n_levels, self.cfg.scale_factor))
+            return pyr, I.build_atlas(pyr)
+
     def _extract(self, img: torch.Tensor) -> O.FrameFeatures:
-        return O.extract_orb(img, **self._orb_args())
+        return O.extract_from_atlas(self._pyramid_atlas(img)[1], **self._orb_args())
 
     def _track(self, feats, frame_id, uvr=None, depth=None):
         cfg = self.cfg
@@ -399,24 +408,21 @@ class StereoSLAM(MonoSLAM):
     def process(self, img_left, img_right, frame_id: int):
         """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
         cfg = self.cfg
-        kw = self._orb_args()
-        # each pyramid and its atlas are built once and shared by extraction
-        # and matching; corners are detected per image, then one blur and one
-        # rBRIEF launch describe the stacked pair
-        pyrs, atlases, dets = [], [], []
+        # one pyramid and one atlas for the stacked pair, shared by
+        # extraction (K1, K2 and K3 once each) and matching (K4 on the two
+        # images' atlases, views of the pair's)
         with torch.profiler.record_function(EXTRACTION_RANGE):
-            for img in (img_left, img_right):
-                im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
-                pyrs.append(tuple(I.build_pyramid(im, cfg.n_levels, cfg.scale_factor)))
-                atlases.append(I.build_atlas(pyrs[-1]))
-                dets.append(O.detect_from_pyramid(pyrs[-1], **kw))
-            pair = O.describe(I.stack_atlases(atlases),
-                              O.Detections(*(torch.stack(f) for f in zip(*dets))))
-            feats, feats_r = (O.FrameFeatures(*(f[i] for f in pair)) for i in range(2))
+            pair = np.stack([np.asarray(img_left), np.asarray(img_right)])
+            pyr, atlas = self._pyramid_atlas(
+                torch.as_tensor(pair, dtype=torch.float32).to(self.device))
+            both = O.extract_from_atlas(atlas, **self._orb_args())
+            feats, feats_r = (O.FrameFeatures(*(f[i] for f in both)) for i in range(2))
         with torch.profiler.record_function(STEREO_RANGE):
             sm = match_stereo(
-                feats, feats_r, pyrs[0], pyrs[1], bf=cfg.bf, baseline=cfg.bf / self.cam.fx,
-                n_levels=cfg.n_levels, scale_factor=cfg.scale_factor, atlases=tuple(atlases),
+                feats, feats_r, tuple(p[0] for p in pyr), tuple(p[1] for p in pyr),
+                bf=cfg.bf, baseline=cfg.bf / self.cam.fx, n_levels=cfg.n_levels,
+                scale_factor=cfg.scale_factor,
+                atlases=tuple(atlas._replace(image=atlas.image[i]) for i in range(2)),
             )
         uvr = torch.where(sm.valid, sm.u_right, -1.0)
         depth = torch.where(sm.valid, sm.depth, -1.0)

@@ -1,6 +1,7 @@
 """Where the time of the port's smoke laps goes, on one NVIDIA GPU.
 
     python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd] [--runs 2] [--out-dir DIR]
+                                              [--tree DIR]
 
 Drives the lap of ``chip_smoke.py`` (same configuration, same rendered
 frames) through the port on ``cuda``:
@@ -18,13 +19,18 @@ frames) through the port on ``cuda``:
    device time, and the device's idle share against the median unprofiled
    frame of the same kind.  Kernel launches, host-to-device copies and
    host time per frame are also split by the facade's ranges -- ORB
-   extraction, stereo matching, the rest (tracking and the mapper) -- and
-   the hand-written kernels' own device time is listed by name;
+   extraction, stereo matching, the rest (tracking and the mapper) --,
+   extraction once more by the ranges inside it (``pyramid``,
+   ``fast_select``, ``ic_angle``, ``describe``), and the hand-written
+   kernels' own device time is listed by name;
 3. peak device memory of the whole process.
 
 Prints one JSON object last, and the card's name and power limit before it;
 writes the operations by device time to ``<out-dir>/profile_<mode>_<from>.txt``
-(default ``build/profile``, which git ignores).
+(default ``build/profile``, which git ignores).  ``--tree DIR`` profiles the
+port of another checkout (say the parent commit, unpacked with ``git
+archive`` into git-ignored ``build/``) with this script and this lap, so two
+trees can be compared inside one call on one card.
 """
 
 from __future__ import annotations
@@ -120,7 +126,10 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--profile-from", type=int, default=16)
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build", "profile"))
+    ap.add_argument("--tree", default=None, help="checkout whose port is profiled (default: this one)")
     args = ap.parse_args()
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     import torch
 
@@ -159,12 +168,15 @@ def main() -> int:
     # The facade's ranges are neither: the profiler mirrors them onto the
     # device timeline with the range's whole span as their "device time".
     ranges = (system.EXTRACTION_RANGE, system.STEREO_RANGE)
-    on_device = [k for k in keys if k.device_type == DeviceType.CUDA and k.key not in ranges]
-    on_host = [k for k in keys if k.device_type != DeviceType.CUDA and k.key not in ranges]
+    parts = tuple(getattr(system, "EXTRACTION_PARTS", ()))  # the ranges inside extraction
+    on_device = [k for k in keys if k.device_type == DeviceType.CUDA and k.key not in ranges + parts]
+    on_host = [k for k in keys if k.device_type != DeviceType.CUDA and k.key not in ranges + parts]
     busy_ms = sum(dev_us(k) for k in on_device) / 1e3
     launches = sum(k.count for k in on_host if k.key.startswith("cudaLaunchKernel"))
     top = sorted(on_host, key=dev_us, reverse=True)[:10]
     by_range = split_by_range(prof, ranges, n_prof)
+    by_part = split_by_range(prof, parts, n_prof)
+    by_part.pop("rest")  # everything outside extraction, and its few calls between the parts
     h2d_rows = sum(k.count for k in on_device if k.key.startswith("Memcpy HtoD")) / n_prof
     # the rest's host time: the profiled frame less the ranges
     by_range["rest"]["host_ms"] = float(ms_p[first:last].mean()) - sum(
@@ -190,6 +202,7 @@ def main() -> int:
             "idle_share": 1.0 - (busy_ms / n_prof) / plain_ms,
             "top_device_ops": [[k.key[:60], dev_us(k) / 1e3 / n_prof] for k in top],
             "per_frame_by_range": by_range,
+            "extraction_per_frame_by_part": by_part,
             "h2d_copies_per_frame": h2d_rows,
             "hand_kernels_launches_and_device_ms_per_frame": hand,
         },
@@ -198,6 +211,7 @@ def main() -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     with open(os.path.join(args.out_dir, f"profile_{args.mode}_{first}.txt"), "w") as f:
         f.write(f"{smi}\nper frame by range: {json.dumps(by_range)}\n"
+                f"extraction per frame by part: {json.dumps(by_part)}\n"
                 f"hand-written kernels (launches, device ms per frame): {json.dumps(hand)}\n"
                 f"{'operation':<70} {'calls':>8} {'device ms':>12}\n")
         for rows in (on_host, on_device):

@@ -7,6 +7,10 @@ tests).  On a machine with an NVIDIA GPU (``sm_90a``) and ``nvcc``:
     python -m pytest tests/test_torch_cuda.py -q
 """
 
+import hashlib
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -43,6 +47,84 @@ def test_fast_score_kernel_exact(dev, lvl):
     assert ck.fast_score.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(out, ck.fast_score_plain(img))
+
+
+ODD_SHAPES = ((97, 131), (81, 109), (67, 91))  # last cells 1 to 27 px wide or high
+
+
+def _candidate_atlas(dev, kind, n_levels, batch):
+    """An atlas whose levels end in partial cells: ``frame`` a rendered room
+    and its resized levels, ``ties`` integer images of four grey values
+    (equal scores all over every cell)."""
+    sizes = ODD_SHAPES if n_levels == 3 else tuple(SHAPES[:n_levels])
+    if kind == "frame":
+        from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom
+
+        h, w = sizes[0]
+        img = BoxRoom(seed=3).render(np.eye(3), np.zeros(3), (0.6 * w, 0.6 * w, w / 2, h / 2), w, h)
+        img = torch.from_numpy(np.clip(img, 0, 255).astype(np.float32))
+        imgs = torch.stack([img.roll(17 * b, -1) for b in range(batch[0])]) if batch else img
+        pyr = image_ops.build_pyramid(imgs.to(dev), n_levels, 1.2)
+        assert tuple(tuple(p.shape[-2:]) for p in pyr) == sizes
+    else:
+        g = torch.Generator().manual_seed(7)
+        pyr = [(torch.randint(0, 4, (*batch, h, w), generator=g) * 40.0).to(dev) for h, w in sizes]
+    return image_ops.build_atlas(tuple(pyr))
+
+
+@pytest.mark.parametrize("kind", ["frame", "ties"])
+@pytest.mark.parametrize("n_levels", [1, 3, 8])
+@pytest.mark.parametrize("batch", [(), (1,), (2,)])
+def test_fast_candidates_kernel_exact(dev, batch, n_levels, kind):
+    """One launch for every cell of every level of every image: scores and
+    indices of every slot equal to the plain version's (per level the dense
+    score map, then ``cell_candidates``), twice the same bits, and the
+    padding columns filled with noise change nothing."""
+    atlas = _candidate_atlas(dev, kind, n_levels, batch)
+    budgets = tuple(fast_ops.level_budgets(1200 if n_levels == 8 else 150, n_levels, 1.2))
+    lay = ck.candidate_layout(atlas.sizes, budgets)
+    before = ck.fast_candidates.launches
+    cand_s, cand_i = ck.fast_candidates(atlas.image, atlas.sizes, budgets)
+    assert ck.fast_candidates.launches == before + 1
+    torch.cuda.synchronize()
+    assert cand_s.shape == cand_i.shape == (*batch, lay.n_cells, lay.k_max)
+    assert cand_s.dtype == torch.float32 and cand_i.dtype == torch.int32
+    plain_s, plain_i = ck.fast_candidates_plain(atlas.image, atlas.sizes, budgets)
+    assert int((plain_s > fast_ops.NEG / 2).sum()) > 20 * max(n_levels, 2)
+    assert torch.equal(cand_s, plain_s)
+    assert torch.equal(cand_i, plain_i)
+    if kind == "ties":
+        filled = plain_s[..., 1:] > fast_ops.NEG / 2
+        assert int(((plain_s[..., 1:] == plain_s[..., :-1]) & filled).sum()) > 50
+    noisy = atlas.image.clone()
+    for (h, w), o in zip(atlas.sizes, image_ops.level_offsets(atlas.sizes)):
+        noisy[..., o:o + h, w:] = torch.rand_like(noisy[..., o:o + h, w:]) * 255
+    again_s, again_i = ck.fast_candidates(noisy, atlas.sizes, budgets)
+    assert torch.equal(again_s, cand_s) and torch.equal(again_i, cand_i)
+
+
+def test_fast_candidates_thresholds_border_and_skipped_levels(dev):
+    """Other thresholds, a narrower border, and a level with no budget."""
+    atlas = _candidate_atlas(dev, "frame", 3, (2,))
+    for budgets, kw in (((80, 0, 40), {}), ((60, 50, 40), dict(th_high=35.0, th_low=12.0)),
+                        ((60, 50, 40), dict(border=4)), ((60, 50, 40), dict(border=19))):
+        got = ck.fast_candidates(atlas.image, atlas.sizes, budgets, **kw)
+        want = ck.fast_candidates_plain(atlas.image, atlas.sizes, budgets, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (budgets, kw)
+
+
+def test_detect_from_atlas_on_card_matches_cpu(dev):
+    """Candidates from the kernel, selection and angles in PyTorch on the
+    card, against the same on the CPU: the same corners exactly; angles to
+    the prefix sums' rounding."""
+    atlas = _candidate_atlas(dev, "frame", 8, (2,))
+    on_card = O.detect_from_atlas(atlas)
+    on_cpu = O.detect_from_atlas(image_ops.build_atlas(tuple(
+        v.cpu().contiguous() for v in image_ops.level_views(atlas.image, atlas.sizes))))
+    for name in ("xy", "level", "response", "valid"):
+        assert torch.equal(getattr(on_card, name).cpu(), getattr(on_cpu, name)), name
+    assert int(on_cpu.valid.sum()) > 1500
+    torch.testing.assert_close(on_card.angle.cpu(), on_cpu.angle, rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("lvl", range(8))
@@ -189,6 +271,34 @@ def test_sad_stereo_kernel(dev, seed):
     assert float((out - plain).abs().max()) <= 1e-2
     assert float((out.argmin(1) == plain.argmin(1)).float().mean()) >= 0.999
     assert torch.equal(out, ck.sad_stereo(*args))  # fixed reduction order
+    assert ck.sad_stereo.launches == before + 2
+
+
+def _sad_inputs_numpy(dev, seed, K=1200):
+    """As ``_sad_inputs``, from numpy's generator (the same values on every
+    installation)."""
+    rng = np.random.default_rng(seed)
+    hs, ws = (np.array([s[i] for s in SHAPES]) for i in (0, 1))
+    atlases = [rng.uniform(0, 255, (int(hs.sum()), int(ws[0]))).astype(np.float32) for _ in range(2)]
+    lvl = rng.integers(0, 8, K)
+    cv, cu, cur = (rng.integers(-m, n[lvl] + m) for m, n in ((8, hs), (8, ws), (12, ws)))
+    off = np.cumsum(hs) - hs
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in atlases) + tuple(
+        torch.from_numpy(a.astype(np.int32)).to(dev) for a in (cv, cu, cur, lvl, off, hs, ws))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sad_stereo_kernel_keeps_the_block_per_keypoint_kernel_sums(dev, seed):
+    """A warp per keypoint adds each sum's 121 terms in the order the
+    earlier kernel (a block per keypoint, a warp per shift) did: the digests
+    in the fixture were taken from that kernel's output on these inputs, on
+    an H100."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "sad_stereo_sums.json")
+    with open(path) as f:
+        want = json.load(f)["sha256"][str(seed)]
+    out = ck.sad_stereo(*_sad_inputs_numpy(dev, seed))
+    torch.cuda.synchronize()
+    assert hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest() == want
 
 
 def test_sad_stereo_kernel_batched(dev):
@@ -241,35 +351,60 @@ def test_extract_orb_on_card_matches_cpu(dev):
     img = np.asarray(_image(SHAPES[0], torch.device("cpu"), 3))
     ck.reset_launch_counts()
     ft = O.to_numpy(O.extract_orb(torch.from_numpy(img).to(dev)))
-    assert ck.launch_counts() == {"fast_score": 8, "gaussian_blur7": 1, "brief_sample": 1,
-                                  "sad_stereo": 0}
+    assert ck.launch_counts() == {"fast_candidates": 1, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 0, "fast_score": 0}
     fc = O.to_numpy(O.extract_orb(torch.from_numpy(img)))
     np.testing.assert_array_equal(ft["valid"], fc["valid"])
     assert np.mean(np.all(ft["desc"] == fc["desc"], axis=1)) >= 0.99
 
 
 def test_stereo_pair_description_is_one_launch_each(dev):
-    """The stereo facade's order on the card: K1 per level and image, then
-    one K2 and one K3 launch over the stacked pair; each image's features
-    equal its own ``extract_orb``."""
+    """The stereo facade's order on the card: K1, K2 and K3 once each over
+    the atlas of the stacked pair; each image's features equal those of its
+    own atlas.  The level-by-level detection (the dense K1 per level and
+    image) followed by one description of the pair gives them too."""
     imgs = [_image(SHAPES[0], dev, s) for s in (5, 6)]
     pyrs = [tuple(image_ops.build_pyramid(im)) for im in imgs]
     atlases = [image_ops.build_atlas(p) for p in pyrs]
     ck.reset_launch_counts()
+    pair = O.extract_from_atlas(image_ops.stack_atlases(atlases))
+    assert ck.launch_counts() == {"fast_candidates": 1, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 0, "fast_score": 0}
+    ck.reset_launch_counts()
     dets = [O.detect_from_pyramid(p) for p in pyrs]
-    pair = O.describe(image_ops.stack_atlases(atlases),
-                      O.Detections(*(torch.stack(f) for f in zip(*dets))))
-    assert ck.launch_counts() == {"fast_score": 16, "gaussian_blur7": 1, "brief_sample": 1,
-                                  "sad_stereo": 0}
-    for b, im in enumerate(imgs):
-        single = O.extract_orb(im)
-        for name, x, y in zip(single._fields, pair, single):
+    by_level = O.describe(image_ops.stack_atlases(atlases),
+                          O.Detections(*(torch.stack(f) for f in zip(*dets))))
+    assert ck.launch_counts() == {"fast_candidates": 0, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 0, "fast_score": 16}
+    for b, atlas in enumerate(atlases):
+        single = O.extract_from_atlas(atlas)
+        for name, x, y, z in zip(single._fields, pair, single, by_level):
             assert torch.equal(x[b], y), name
+            if name in ("angle", "desc"):  # prefix sums over a level's rows or the atlas's
+                continue
+            assert torch.equal(z[b], y), name
+        assert float((by_level.angle[b] - single.angle).abs().max()) <= 1e-3
+        assert float((by_level.desc[b] == single.desc).all(dim=-1).float().mean()) >= 0.98
 
 
 def test_wrappers_reject_bad_input(dev):
     with pytest.raises(TypeError):
         ck.fast_score(torch.zeros(64, 64, dtype=torch.float64, device=dev))
+    level = torch.zeros(64, 64, device=dev)
+    with pytest.raises(ValueError):  # the ring and the peak test reach 4 pixels
+        ck.fast_candidates(level, ((64, 64),), (50,), border=3)
+    with pytest.raises(ValueError):  # a level with no pixel inside its border
+        ck.fast_candidates(level, ((64, 64),), (50,), border=32)
+    with pytest.raises(ValueError):  # a budget per level
+        ck.fast_candidates(level, ((64, 64),), (50, 40))
+    with pytest.raises(ValueError):  # the levels do not fill the rows
+        ck.fast_candidates(level, ((48, 64),), (50,))
+    with pytest.raises(TypeError):
+        ck.fast_candidates(level.double(), ((64, 64),), (50,))
+    with pytest.raises(ValueError):
+        ck.fast_candidates(torch.zeros(64, 128, device=dev)[:, ::2], ((64, 64),), (50,))
+    cand_s, cand_i = ck.fast_candidates(level, ((64, 64),), (0,))  # nothing asked for
+    assert cand_s.shape == cand_i.shape == (0, 0)
     with pytest.raises(ValueError):
         ck.gaussian_blur7(torch.zeros(64, 128, device=dev)[:, ::2])
     img = torch.zeros(64, 64, device=dev)
@@ -300,3 +435,5 @@ def test_wrappers_reject_bad_input(dev):
         ck.sad_stereo(*args[:2], args[2].long(), *args[3:])
     with pytest.raises(ValueError):
         ck.sad_stereo(args[0], args[1][:-1], *args[2:])
+    with pytest.raises(ValueError):  # an atlas on another device
+        ck.sad_stereo(args[0], args[1].cpu(), *args[2:])

@@ -122,6 +122,44 @@ def test_stacked_pair_description_matches_single_images(frames):
             assert torch.equal(x[b], y), name
 
 
+def test_extract_orb_goes_the_atlas_route_with_the_same_features(frames):
+    """``extract_orb`` (candidates over the atlas, angles at the keypoints)
+    against the level-by-level detection followed by ``describe``: every
+    field of ``FrameFeatures``, exactly."""
+    from orb_slam3_noted_tpu_torch.ops import image as timage
+
+    for frame in frames:
+        img = torch.from_numpy(frame)
+        pyr = tuple(timage.build_pyramid(img))
+        by_level = torb.describe(timage.build_atlas(pyr), torb.detect_from_pyramid(pyr, n_features=NF))
+        for got in (torb.extract_orb(img, n_features=NF),
+                    torb.extract_from_pyramid(pyr, n_features=NF),
+                    torb.extract_from_atlas(timage.build_atlas(pyr), n_features=NF)):
+            for name, x, y in zip(by_level._fields, got, by_level):
+                assert torch.equal(x, y), name
+
+
+def test_stacked_pair_extraction_gives_each_image_its_own(frames):
+    """The stereo facade's order now -- one pyramid and one atlas for the
+    stacked pair, one detection and one description over it -- gives each
+    image exactly the features of its own ``extract_orb``."""
+    from orb_slam3_noted_tpu_torch.ops import image as timage
+
+    pair = torch.from_numpy(np.stack(frames))
+    atlas = timage.build_atlas(tuple(timage.build_pyramid(pair)))
+    assert atlas.image.dim() == 3 and atlas.image.shape[0] == 2
+    both = torb.extract_from_atlas(atlas, n_features=NF)
+    assert both.desc.shape == (2, NF, 8)
+    for b, frame in enumerate(frames):
+        single = torb.extract_orb(torch.from_numpy(frame), n_features=NF)
+        for name, x, y in zip(single._fields, both, single):
+            assert torch.equal(x[b], y), name
+        # the views the stereo matcher gets are the image's own atlas
+        alone = timage.build_atlas(tuple(timage.build_pyramid(torch.from_numpy(frame))))
+        view = atlas._replace(image=atlas.image[b])
+        assert view.image.is_contiguous() and torch.equal(view.image, alone.image)
+
+
 def test_brief_descriptors_single_level_form(frames):
     """``brief_descriptors`` on one blurred level: the one-level atlas."""
     from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck

@@ -288,6 +288,156 @@ def test_atlas_sampler_plain_is_brief_coords_per_level():
         assert torch.equal(out[torch.from_numpy(m)], ck.brief_sample_plain(view.contiguous(), gy, gx))
 
 
+def _tie_levels(seed=21):
+    """Integer-valued images of few grey values at the level shapes: FAST
+    scores are small integers, so cells are full of equal scores."""
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, 4, size=shape) * 40).astype(np.float32)
+            for shape in timage.pyramid_sizes(H, W, N_LEVELS, SCALE)]
+
+
+@pytest.fixture(scope="module")
+def candidate_levels(jax_levels):
+    """Per kind of input: the levels, and K1's plain candidates over their
+    atlas with its layout."""
+    out = {}
+    for kind, levels in (("frame", jax_levels), ("ties", _tie_levels())):
+        atlas = timage.build_atlas(tuple(torch.from_numpy(lv) for lv in levels))
+        cand = ck.fast_candidates(atlas.image, atlas.sizes, BUDGETS)  # CPU -> plain version
+        out[kind] = (levels, atlas, cand, ck.candidate_layout(atlas.sizes, tuple(BUDGETS)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["frame", "ties"])
+@pytest.mark.parametrize("lvl", range(N_LEVELS))
+def test_fast_candidates_plain_then_select_is_jax_detect_level(candidate_levels, kind, lvl):
+    """K1's plain version over the atlas, then ``select_from_cells`` on the
+    level's slice, against the JAX package's ``detect_level`` of that level's
+    score map: coordinates, scores and validity of every slot, exactly."""
+    levels, atlas, (cand_s, cand_i), lay = candidate_levels[kind]
+    assert cand_s.shape == (lay.n_cells, lay.k_max) and cand_i.dtype == torch.int32
+    c0, c1, k = lay.first[lvl], lay.first[lvl + 1], lay.k[lvl]
+    ncy, ncx = tfast.cell_grid(*atlas.sizes[lvl])
+    assert c1 - c0 == ncy * ncx and lay.per_row[lvl] == ncx
+    assert k == tfast.candidates_per_cell(BUDGETS[lvl], ncy * ncx)
+    assert bool((cand_s[c0:c1, k:] == tfast.NEG).all()) and bool((cand_i[c0:c1, k:] == 0).all())
+    kps = tfast.select_from_cells(cand_s[c0:c1, :k], cand_i[c0:c1, :k], ncx, BUDGETS[lvl])
+    lv = jnp.asarray(levels[lvl])
+    ref = jfast.detect_level(_jfast_score(lv), n_out=BUDGETS[lvl])
+    np.testing.assert_array_equal(kps.valid.numpy(), np.asarray(ref.valid))
+    np.testing.assert_array_equal(kps.score.numpy(), np.asarray(ref.score))
+    np.testing.assert_array_equal(kps.xy.numpy(), np.asarray(ref.xy))
+    assert int(kps.valid.sum()) > 0
+    if kind == "ties":  # the premise: equal scores inside cells, decided by index
+        s = cand_s[c0:c1, :k]
+        assert int(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] > tfast.NEG / 2)).sum()) > 10
+    # the composition the JAX counterpart is held to keeps its signature
+    whole = tfast.detect_level(ck.fast_score(torch.from_numpy(levels[lvl])), n_out=BUDGETS[lvl])
+    for a, b in zip(whole, kps):
+        assert torch.equal(a, b)
+
+
+def test_fast_candidates_rejects_what_the_kernel_cannot_take():
+    """Checked ahead of the launch, on any device: the layout needs a budget
+    per level; the card's wrapper needs border >= 4 and levels that hold a
+    kept pixel (the checks sit behind the device test, so the CPU's plain
+    version, which needs neither, is not held to them)."""
+    img = torch.zeros(94, 61)
+    sizes = ((37, 61), (31, 51), (26, 43))
+    with pytest.raises(ValueError):
+        ck.fast_candidates(img, sizes, (10, 10))
+    s, i = ck.fast_candidates(img, sizes, (10, 0, 10), border=2)
+    lay = ck.candidate_layout(sizes, (10, 0, 10))
+    assert lay.first == (0, 4, 4, 6) and lay.k[1] == 0 and s.shape == (6, lay.k_max)
+    assert bool((s == tfast.NEG).all())
+
+
+@pytest.mark.parametrize("batch", [(), (1,), (2,)])
+def test_detect_from_atlas_equals_detect_from_pyramid(frame, batch):
+    """One candidate pass over the atlas, the padding columns filled with
+    noise, gives the level-by-level detections exactly; with a batch every
+    image gets the detections it gets alone."""
+    rng = np.random.default_rng(22)
+    imgs = np.stack([frame, frame[::-1].copy()])[: max(batch[0], 1) if batch else 1]
+    img = torch.from_numpy(imgs if batch else imgs[0])
+    pyr = tuple(timage.build_pyramid(img, N_LEVELS, SCALE))
+    atlas = timage.build_atlas(pyr)
+    noisy = atlas.image.clone()
+    for (h, w), o in zip(atlas.sizes, timage.level_offsets(atlas.sizes)):
+        pad = noisy[..., o:o + h, w:]
+        pad.copy_(torch.from_numpy(rng.uniform(0, 255, pad.shape).astype(np.float32)))
+    kw = dict(n_features=600, n_levels=N_LEVELS, scale_factor=SCALE)
+    got = torb.detect_from_atlas(atlas._replace(image=noisy), **kw)
+    assert got.xy.shape == (*batch, 600, 2) and int(got.valid.sum()) > 400 * len(imgs)
+    for idx in np.ndindex(*batch):
+        alone = torb.detect_from_pyramid(tuple(p[idx] for p in pyr), **kw)
+        for name, a, b in zip(alone._fields, got, alone):
+            assert torch.equal(a[idx], b), (name, idx)
+    # the batched level-by-level form takes one arctangent per level over
+    # the whole batch, which rounds an element by its place in the call
+    whole = torb.detect_from_pyramid(pyr, **kw)
+    for name, a, b in zip(whole._fields, got, whole):
+        if name == "angle":
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("lvl", [0, 1, 2])
+def test_atlas_detection_level_sees_only_itself(lvl):
+    """Neither the padding nor a neighbouring level reaches a level's
+    corners and angles: overwrite everything else with noise."""
+    atlas_np, sizes, levels = _atlas_inputs(23, ())
+    big = [np.kron(lv, np.ones((3, 3), np.float32)) for lv in levels]  # 111x183, 93x153, 78x129
+    rng = np.random.default_rng(24)
+    pyr = tuple(torch.from_numpy(np.round(b + rng.uniform(-20, 20, b.shape)).astype(np.float32))
+                for b in big)
+    atlas = timage.build_atlas(pyr)
+    other = torch.from_numpy(rng.uniform(0, 255, atlas.image.shape).astype(np.float32))
+    (h, w), o = atlas.sizes[lvl], timage.level_offsets(atlas.sizes)[lvl]
+    other[o:o + h, :w] = atlas.image[o:o + h, :w]
+    kw = dict(n_features=120, n_levels=3, scale_factor=SCALE)
+    a = torb.detect_from_atlas(atlas, **kw)
+    b = torb.detect_from_atlas(atlas._replace(image=other), **kw)
+    rows = a.level == lvl
+    assert int((a.valid & rows).sum()) > 10
+    for name, x, y in zip(a._fields, a, b):
+        assert torch.equal(x[rows], y[rows]), name
+    assert not torch.equal(a.xy[~rows], b.xy[~rows])
+
+
+@pytest.mark.parametrize("batch", [(), (2,)])
+def test_ic_angles_atlas_is_ic_angles_per_level(jax_levels, batch):
+    """Angles read at the keypoints of an atlas against the dense moment
+    maps of each level: bit for bit, keypoints on the 16-px border and in
+    the corners of the kept area included; and against the JAX package's
+    ``ic_angles`` within the float32 prefix sums' last-ulp differences."""
+    rng = np.random.default_rng(25)
+    levels = [np.stack([lv, lv[::-1]])[: batch[0]] if batch else lv for lv in jax_levels]
+    atlas = timage.build_atlas(tuple(torch.from_numpy(np.ascontiguousarray(lv)) for lv in levels))
+    n_per = 40
+    xy, lvl = [], []
+    for l, (h, w) in enumerate(atlas.sizes):
+        pts = rng.integers([16, 16], [w - 16, h - 16], size=(*batch, n_per, 2))
+        pts[..., :4, :] = [[16, 16], [w - 17, 16], [16, h - 17], [w - 17, h - 17]]
+        xy.append(pts.astype(np.float32))
+        lvl.append(np.full((*batch, n_per), l, np.int32))
+    xy, lvl = (torch.from_numpy(np.concatenate(v, axis=len(batch))) for v in (xy, lvl))
+    got = torb.ic_angles_atlas(atlas, xy, lvl, runs=(n_per,) * N_LEVELS)
+    assert got.shape == (*batch, N_LEVELS * n_per)
+    for l, lv in enumerate(levels):
+        rows = slice(l * n_per, (l + 1) * n_per)
+        for idx in np.ndindex(*batch):
+            pts = xy[idx][rows]
+            ref = torb.ic_angles(torch.from_numpy(np.ascontiguousarray(lv[idx])), pts)
+            assert torch.equal(got[idx][rows], ref), (l, idx)
+            jref = _jic_angles(jnp.asarray(lv[idx]), jnp.asarray(pts.numpy()))
+            np.testing.assert_allclose(got[idx][rows].numpy(), np.asarray(jref), rtol=0, atol=1e-4)
+    # one arctangent over all keypoints of an image: the same to an ulp
+    whole = torb.ic_angles_atlas(atlas, xy, lvl, runs=(N_LEVELS * n_per,))
+    torch.testing.assert_close(whole, got, rtol=0, atol=1e-6)
+
+
 def test_atlas_tables_are_cached_and_stack():
     """``build_atlas`` lives in ``ops/image.py`` (``ops/stereo.py`` keeps the
     name); its device tables are made once per level sizes and device."""
@@ -318,8 +468,11 @@ def test_wrappers_run_plain_on_cpu_and_count_nothing(jax_levels):
     sads = ck.sad_stereo(lv, blur, i32(20, 30), i32(40, 50), i32(35, 48), i32(0, 0),
                          i32(0), i32(lv.shape[0]), i32(lv.shape[1]))
     assert sads.shape == (2, 11)
-    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0,
-                                  "sad_stereo": 0}
+    atlas = timage.build_atlas(tuple(timage.build_pyramid(lv, 3, SCALE)))
+    cand_s, cand_i = ck.fast_candidates(atlas.image, atlas.sizes, (40, 30, 20))
+    assert cand_s.shape == cand_i.shape and cand_i.dtype == torch.int32
+    assert ck.launch_counts() == {"fast_candidates": 0, "gaussian_blur7": 0, "brief_sample": 0,
+                                  "sad_stereo": 0, "fast_score": 0}
 
 
 def test_build_dir_is_gitignored():
@@ -332,5 +485,6 @@ def test_build_dir_is_gitignored():
     assert rel in ignored
     assert ck.library_path().parent == ck.BUILD_DIR
     assert sorted(p.name for p in ck.CSRC.glob("*.cu")) == [
-        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu", "sad_stereo.cu"
+        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu", "launch_floor.cu",
+        "sad_stereo.cu",
     ]

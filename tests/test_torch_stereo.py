@@ -147,9 +147,11 @@ def test_sad_stereo_plain_batched():
 
 
 def test_launch_counts_name_all_four_kernels():
+    """K1 to K4 as a frame launches them, and K1's single-level form."""
     ck.reset_launch_counts()
     assert ck.launch_counts() == {
-        "fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0, "sad_stereo": 0}
+        "fast_candidates": 0, "gaussian_blur7": 0, "brief_sample": 0, "sad_stereo": 0,
+        "fast_score": 0}
 
 
 @pytest.mark.parametrize("frame", [0, 1, 2])

@@ -225,8 +225,8 @@ def test_rgbd_localization_slice(laps, frames):
     mt, mj = tms.to_numpy(ts.m), jax.device_get(js.m)._asdict()
     for k in ("mp_visible", "mp_found"):
         assert (mt[k][:-1] == np.asarray(mj[k])[:-1]).mean() >= 0.97, k
-    assert ck.launch_counts() == {"fast_score": 0, "gaussian_blur7": 0, "brief_sample": 0,
-                                  "sad_stereo": 0}
+    assert ck.launch_counts() == {"fast_candidates": 0, "gaussian_blur7": 0, "brief_sample": 0,
+                                  "sad_stereo": 0, "fast_score": 0}
 
 
 def test_shared_constant_tensors_survive_a_lap(laps):
