@@ -40,10 +40,33 @@ Phases, each of which raises on failure (exit code 1, no result line):
    RMSE, keyframe count and the initial map's size within the thresholds
    derived from the JAX package's run
    (``tests/fixtures/stereo_slam_lap.json``);
+6. batch shapes: K1, K2 and K3 over the atlas of the mono lap's first 16
+   frames (B = 16) and over the 32 images of the first 16 stereo pairs (B =
+   32, a stereo batch dispatch), K4 over those 16 pairs, against their
+   plain versions to the same limits, timed three ways beside their bounds;
+7. the mono lap: ``bench.py``'s monocular configuration (8192 map points,
+   loop closing off), 120 frames of ``orbit_trajectory(120, forward=0.03,
+   yaw0=0.45)`` (rendered from the JAX run's camera rotations, stored in
+   the fixture) staged on the card once, ``MonoSLAM.process_batch`` in
+   batches of 16 from frame 0 (batched two-view initialisation included) on
+   the JAX run's RANSAC minimal sets (stored in the fixture):
+   initialisation frame, tracked frames, Sim(3)-aligned ATE and keyframes
+   against ``tests/fixtures/mono_slam_lap.json``, K1, K2 and K3 launched
+   once per extraction dispatch (each batch of tracking, each batch of
+   initialisation attempts) and K4 never, frames/s;
+8. the stereo batch lap: the 48 pairs staged on the card, ``process`` until
+   initialised, then ``process_batch`` in batches of 16, against
+   ``tests/fixtures/stereo_batch_lap.json``; K4 once per batch plus once
+   per frame-by-frame frame, frames/s;
 
-then one JSON line of per-kernel results, the ``nvidia-smi`` line again,
-and last ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits
-with 1 before any of this.
+after each of the laps 4, 5, 7 and 8, every kernel against its plain
+version on the inputs the lap gave it, one input for each distinct shape
+(``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
+the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
+same limits; then one JSON line of per-kernel results (all five wrappers, their
+launches in every lap), the ``nvidia-smi`` line again, and last
+``{"ok": true, "device": {...}}``.  Without a CUDA device it exits with 1
+before any of this.
 """
 
 from __future__ import annotations
@@ -59,6 +82,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "fixtures", "rgbd_localization_lap.json")
 STEREO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_slam_lap.json")
+MONO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mono_slam_lap.json")
+STEREO_BATCH_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_batch_lap.json")
 
 W, H = 752, 480
 CAM_PARAMS = (458.654, 457.296, 367.215, 248.375)
@@ -75,6 +100,11 @@ TRACKED_MARGIN = 2      # frames below the JAX run's tracked count
 RMSE_FACTOR, RMSE_SLACK_M = 2.0, 0.002  # rmse <= 2 x JAX rmse + 2 mm
 KF_MARGIN, KF_MIN = 1, 3  # stereo lap: keyframes within +-1 of the JAX run's, at least 3
 INIT_MAP_RTOL = 0.01      # stereo lap: frame 0's map size vs the JAX run's
+BATCH = 16                # frames per process_batch dispatch (bench.py)
+MONO_FRAMES = 120
+# mono lap against the JAX run: initialised no later than 4 frames after it,
+# tracked >= JAX - 3, Sim(3)-aligned ATE <= 2 x JAX + 2 mm, keyframes +-2
+MONO_INIT_MARGIN, MONO_TRACKED_MARGIN, MONO_KF_MARGIN = 4, 3, 2
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here is float32 or integer arithmetic)
@@ -90,6 +120,9 @@ KERNEL_SOURCES = {
                      "orb_slam3_noted_tpu/ops/pallas_kernels.py:292"),
     "sad_stereo": ("orb_slam3_noted_tpu_torch/csrc/sad_stereo.cu",
                    "orb_slam3_noted_tpu/ops/pallas_kernels.py:448"),
+    # K1's single-level form: the dense score map, off every lap's path
+    "fast_score": ("orb_slam3_noted_tpu_torch/csrc/fast_score.cu",
+                   "orb_slam3_noted_tpu/ops/pallas_kernels.py:55"),
 }
 
 
@@ -133,24 +166,30 @@ def cuda_time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 
 def device_time_ms(fn, match: str | None = None, reps: int = 20) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
-    launches, as ``torch.profiler`` records them on the card, summed over
-    ``reps`` calls and divided by ``reps``.  With ``match`` only the kernels
-    whose name contains it count (a hand-written kernel's own body)."""
+    launches, as ``torch.profiler`` records them on the card.  Without
+    ``match``: all of them, summed over ``reps`` calls and divided by
+    ``reps``.  With ``match``: only the kernels whose name contains it (a
+    hand-written kernel's own body, launched once per call), as the mean of
+    the launches the profiler recorded: it misses some of a session's
+    records now and then, and a session that recorded none is profiled
+    again."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [k for k in prof.key_averages() if k.device_type == DeviceType.CUDA
-            and (match is None or match in k.key)]
-    if not rows:
-        raise AssertionError(f"the profiler saw no device kernel matching {match!r}")
-    return sum(k.self_device_time_total for k in rows) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        rows = [k for k in prof.key_averages() if k.device_type == DeviceType.CUDA
+                and (match is None or match in k.key)]
+        if rows:
+            n = reps if match is None else sum(k.count for k in rows)
+            return sum(k.self_device_time_total for k in rows) / 1e3 / n
+    raise AssertionError(f"the profiler saw no device kernel matching {match!r} in 3 sessions")
 
 
 def host_time_ms(fn, reps: int = 200) -> float:
@@ -179,6 +218,37 @@ def lap_config():
         max_keyframes=64, max_map_points=16384,
         local_window=5, kf_max_interval=10, enable_loop_closing=False,
     )
+
+
+def mono_config():
+    """``bench.py``'s monocular configuration, loop closing off."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+
+    return SlamConfig(
+        camera=Camera(PINHOLE, CAM_PARAMS), width=W, height=H, n_features=1200,
+        max_keyframes=64, max_map_points=8192, local_window=5, kf_max_interval=10,
+        enable_loop_closing=False,
+    )
+
+
+def mono_inputs():
+    """(poses, (n, H, W) uint8 images) of ``bench.py``'s monocular lap,
+    rendered from the camera rotations the JAX run's frames were rendered
+    from (``rwc_f32`` of the mono fixture; the port's ``orbit_trajectory``
+    rounds a few of them 1 ulp otherwise, which moves edge pixels)."""
+    import base64
+
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory
+
+    ref = load_fixture(MONO_FIXTURE, MONO_FRAMES)
+    rwc = np.frombuffer(base64.b64decode(ref["rwc_f32"]), "<f4").reshape(MONO_FRAMES, 3, 3)
+    ours = orbit_trajectory(MONO_FRAMES, forward=0.03, yaw0=0.45)
+    if max(float(np.abs(R - Rf).max()) for (R, _), Rf in zip(ours, rwc)) > 1e-6:
+        raise AssertionError(f"{MONO_FIXTURE}: the rotations are not this lap's")
+    poses = [(Rf.copy(), t) for (_, t), Rf in zip(ours, rwc)]
+    room = BoxRoom(seed=0)
+    return poses, np.stack([room.render(R, t, CAM_PARAMS, W, H) for R, t in poses]).astype(np.uint8)
 
 
 def lap_inputs(n_frames: int):
@@ -281,21 +351,12 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
     th, border = (cfg.ini_th_fast, cfg.min_th_fast), 16
     lay = ck.candidate_layout(sizes, budgets)
 
-    def cand_diff(image):
-        (s, i), (ps, pi) = (ck.fast_candidates(image, sizes, budgets, *th, border),
-                            ck.fast_candidates_plain(image, sizes, budgets, *th, border))
-        torch.cuda.synchronize()
-        filled = ps > fast_ops.NEG / 2
-        return (float((s - ps).abs().max()), int((s != ps).sum()) + int(((i != pi) & filled).sum()),
-                int((i != pi).sum()), int(filled.sum()))
-
-    err, mism, idx_all, n_cand = cand_diff(one.image)
-    err2, mism2, idx_all2, n_cand2 = cand_diff(pair.image)
+    c1, c2 = (compare_fast(a.image, sizes, budgets, *th, border) for a in (one, pair))
     dense = [(ck.fast_score(lv), ck.fast_score_plain(lv)) for lv in pyrs[0]]
     mism1 = sum(int((a != b).sum()) for a, b in dense)
     log(f"  fast_candidates: {lay.n_cells} cells x {lay.k_max} slots (k per level {lay.k}); B=1 "
-        f"{mism} of {n_cand} candidates differ ({idx_all} indices over all slots), B=2 {mism2} of "
-        f"{n_cand2} ({idx_all2}); dense score map, 8 levels: {mism1} of {px} pixels differ")
+        f"{c1['mismatches']} of {c1['of']} candidates differ, B=2 {c2['mismatches']} of "
+        f"{c2['of']}; dense score map, 8 levels: {mism1} of {px} pixels differ")
 
     def replaced():  # the per-level route this launch replaces: K1 dense + selection's first half
         return [fast_ops.cell_candidates(ck.fast_score(lv), n, ck.CELL, *th, border)
@@ -305,7 +366,8 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
     n_full = compass_pass_count(pyrs[0], th[1], border)
     log(f"  fast_candidates: {n_full} of {scored} scored pixels pass the compass test and get "
         f"the full score")
-    r = {"max_abs_err": max(err, err2), "mismatches": mism + mism2 + mism1,
+    r = {"max_abs_err": max(c1["max_abs_err"], c2["max_abs_err"]),
+         "mismatches": c1["mismatches"] + c2["mismatches"] + mism1,
          **kernel_times(lambda: ck.fast_candidates(one.image, sizes, budgets, *th, border),
                         "fast_candidates"),
          **reference_times(
@@ -328,12 +390,6 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
     res["fast_candidates"] = r
 
     # --- K2 over the atlas ---------------------------------------------------
-    def blur_diff(out, ref):
-        """Over the level windows (the padding is unwritten on the card)."""
-        pairs = list(zip(image_ops.level_views(out, sizes), image_ops.level_views(ref, sizes)))
-        return (max(float((a - b).abs().max()) for a, b in pairs),
-                sum(int((a != b).sum()) for a, b in pairs))
-
     taps = torch.from_numpy(image_ops.gaussian_kernel1d(7, ck.BLUR_SIGMA)).to(dev)
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # the yardstick computes in float32 too
@@ -349,15 +405,14 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
     for lib, ref in zip(blur_library_all(), image_ops.level_views(plain_one, sizes)):
         if float((lib - ref).abs().max()) > 1e-3:
             raise AssertionError("the library blur computes another function")
-    err, mism = blur_diff(ck.gaussian_blur7(one.image, sizes), plain_one)
-    err2, mism2 = blur_diff(ck.gaussian_blur7(pair.image, sizes),
-                            ck.gaussian_blur7_plain(pair.image, sizes))
     lv0 = pyrs[0][0]
-    single = ck.gaussian_blur7(lv0)
-    err1 = float((single - ck.gaussian_blur7_plain(lv0)).abs().max())
-    log(f"  gaussian_blur7: atlas B=1 max_abs_err {err:.3g} ({mism} differ), B=2 {err2:.3g} "
-        f"({mism2} differ), single level {tuple(lv0.shape)} {err1:.3g}")
-    r = {"max_abs_err": max(err, err2, err1), "mismatches": mism + mism2 + int(err1 != 0),
+    cs_ = [compare_blur(one.image, sizes), compare_blur(pair.image, sizes), compare_blur(lv0)]
+    log(f"  gaussian_blur7: atlas B=1 max_abs_err {cs_[0]['max_abs_err']:.3g} "
+        f"({cs_[0]['mismatches']} differ), B=2 {cs_[1]['max_abs_err']:.3g} "
+        f"({cs_[1]['mismatches']} differ), single level {tuple(lv0.shape)} "
+        f"{cs_[2]['max_abs_err']:.3g}")
+    r = {"max_abs_err": max(c["max_abs_err"] for c in cs_),
+         "mismatches": sum(c["mismatches"] for c in cs_),
          **kernel_times(lambda: ck.gaussian_blur7(one.image, sizes), "gaussian_blur7"),
          **reference_times(lambda: ck.gaussian_blur7_plain(one.image, sizes), "plain"),
          **reference_times(blur_library_all, "library"),
@@ -373,25 +428,18 @@ def check_kernels(cfg, left_u8, right_u8, dev) -> dict:
         blur = ck.gaussian_blur7_plain(atlas.image, sizes)
         return blur, sizes, det.xy.to(torch.int32), det.angle, det.level
 
-    def brief_diff(args):
-        out = ck.brief_sample(*args)
-        torch.cuda.synchronize()
-        ref = ck.brief_sample_atlas_plain(*args)
-        bits = lambda d: (d[..., None] >> torch.arange(32, device=dev, dtype=torch.int32)) & 1
-        return float((bits(out) - bits(ref)).abs().max()), int((out != ref).any(dim=-1).sum())
-
     args_one, args_pair = brief_args(one, dets[0]), brief_args(pair, det_pair)
-    err, mism = brief_diff(args_one)
-    err2, mism2 = brief_diff(args_pair)
+    c1, c2 = compare_brief(*args_one), compare_brief(*args_pair)
     # the single-level form on level 0: its keypoints are the first ones
     k0 = int((dets[0].level == 0).sum())
     blur0 = ck.gaussian_blur7(lv0)
     d0 = O.brief_descriptors(blur0, dets[0].xy[:k0], dets[0].angle[:k0])
     gy, gx = O.brief_coords(lv0.shape[0], lv0.shape[1], dets[0].xy[:k0], dets[0].angle[:k0])
     mism1 = int((d0 != ck.brief_sample_plain(blur0, gy, gx)).any(dim=-1).sum())
-    log(f"  brief_sample: atlas B=1 {mism} of {K} descriptors differ, B=2 {mism2} of {2 * K}, "
-        f"single level {mism1} of {k0}")
-    r = {"max_abs_err": max(err, err2), "mismatches": mism + mism2 + mism1,
+    log(f"  brief_sample: atlas B=1 {c1['mismatches']} of {K} descriptors differ, B=2 "
+        f"{c2['mismatches']} of {2 * K}, single level {mism1} of {k0}")
+    r = {"max_abs_err": max(c1["max_abs_err"], c2["max_abs_err"]),
+         "mismatches": c1["mismatches"] + c2["mismatches"] + mism1,
          **kernel_times(lambda: ck.brief_sample(*args_one), "brief_sample"),
          **reference_times(lambda: ck.brief_sample_atlas_plain(*args_one), "plain"),
          "library_ms": None,
@@ -429,40 +477,295 @@ def check_sad(cfg, left_u8, right_u8, dev) -> dict:
     cv, cu, cur, _ = S.level_centres(feats[0], feats[1], idx_r, tuple(p[0] for p in pyr))
     al, ar = (pair._replace(image=pair.image[b]) for b in range(2))
     args = (al.image, ar.image, cv, cu, cur, feats[0].level.contiguous(), al.off, al.h, al.w)
-    sads = ck.sad_stereo(*args)
-    torch.cuda.synchronize()
-    plain = ck.sad_stereo_plain(*args)
     K = cv.shape[0]
     use = have & feats[0].valid  # the rows whose SADs the matcher reads
     # the same centres on atlases of uniform noise: no two neighbouring
     # pixels alike, so every one of the 121 terms is a float of its own
     g = torch.Generator(device=dev).manual_seed(0)
     noise = [torch.rand(al.image.shape, generator=g, device=dev) * 255.0 for _ in range(2)]
-    sads_n = ck.sad_stereo(*noise, *args[2:])
-    plain_n = ck.sad_stereo_plain(*noise, *args[2:])
-    err_lap, err_noise = float((sads - plain).abs().max()), float((sads_n - plain_n).abs().max())
-    log(f"  sad_stereo: lap inputs max_abs_err {err_lap:.3g} ({int((sads != plain).sum())} of "
-        f"{sads.numel()} sums differ), noise atlases max_abs_err {err_noise:.3g} "
-        f"({int((sads_n != plain_n).sum())} differ, sums up to {float(plain_n.max()):.0f})")
-    err = max(err_lap, err_noise)
-    same = float((sads.argmin(1) == plain.argmin(1))[use].float().mean())
+    c_lap, c_noise = compare_sad(*args, use=use), compare_sad(*noise, *args[2:])
+    log(f"  sad_stereo: atlas {tuple(al.image.shape)}, K={K}, candidates {c_lap['of']}; lap "
+        f"inputs max_abs_err {c_lap['max_abs_err']:.3g}, same best shift {c_lap['same']:.5f}; "
+        f"noise atlases max_abs_err {c_noise['max_abs_err']:.3g}, same best shift "
+        f"{c_noise['same']:.5f}")
+    hold_to_limits("sad_stereo", c_lap, "lap frame 0")
+    hold_to_limits("sad_stereo", c_noise, "noise atlases")
     # per keypoint: 121 + 231 gathered floats, 3 centres and a level read,
     # 11 sums written; 11 shifts x 121 x (subtract, abs, add)
-    n_bytes = K * ((121 + 231) * 4 + 4 * 4 + 11 * 4)
-    res = {
-        "max_abs_err": err, "mismatches": int((sads.argmin(1) != plain.argmin(1))[use].sum()),
+    return {
+        "max_abs_err": max(c_lap["max_abs_err"], c_noise["max_abs_err"]),
+        "mismatches": c_lap["mismatches"],
         **kernel_times(lambda: ck.sad_stereo(*args), "sad_stereo"),
         **reference_times(lambda: ck.sad_stereo_plain(*args), "plain"),
-        "bytes": n_bytes, "ops": K * 11 * 121 * 3, "library_ms": None,
+        "bytes": K * ((121 + 231) * 4 + 4 * 4 + 11 * 4), "ops": K * 11 * 121 * 3,
+        "library_ms": None,
     }
-    log(f"  sad_stereo: atlas {tuple(al.image.shape)}, K={K}, candidates {int(use.sum())}, "
-        f"SAD range {float(plain[use].min()):.0f}..{float(plain[use].max()):.0f}, "
-        f"same best shift {same:.5f}")
-    if err > K4_ATOL:
-        raise AssertionError(f"K4 differs from its plain version by {err} > {K4_ATOL}")
-    if same < K4_ARGMIN_SHARE:
-        raise AssertionError(f"K4 best shift agrees on {same:.5f} < {K4_ARGMIN_SHARE}")
+
+
+def compare_fast(image, sizes, budgets, th_high, th_low, border) -> dict:
+    """K1 against its plain version on one input: every candidate slot's
+    score, and the index of every filled slot."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
+
+    (s, i), (ps, pi) = (ck.fast_candidates(image, sizes, budgets, th_high, th_low, border),
+                        ck.fast_candidates_plain(image, sizes, budgets, th_high, th_low, border))
+    torch.cuda.synchronize()
+    filled = ps > fast_ops.NEG / 2
+    return {"max_abs_err": float((s - ps).abs().max()),
+            "mismatches": int((s != ps).sum()) + int(((i != pi) & filled).sum()),
+            "of": int(filled.sum())}
+
+
+def compare_blur(img, sizes=None) -> dict:
+    """K2 against its plain version over the level windows (the padding is
+    unwritten on the card)."""
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import image as image_ops
+
+    win = sizes or (tuple(img.shape[-2:]),)
+    pairs = list(zip(image_ops.level_views(ck.gaussian_blur7(img, sizes), win),
+                     image_ops.level_views(ck.gaussian_blur7_plain(img, sizes), win)))
+    return {"max_abs_err": max(float((a - b).abs().max()) for a, b in pairs),
+            "mismatches": sum(int((a != b).sum()) for a, b in pairs),
+            "of": sum(a.numel() for a, _ in pairs)}
+
+
+def compare_brief(*args) -> dict:
+    """K3 against its plain version: descriptors that differ in any bit."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+    out = ck.brief_sample(*args)
+    torch.cuda.synchronize()
+    mism = int((out != ck.brief_sample_atlas_plain(*args)).any(dim=-1).sum())
+    return {"max_abs_err": float(mism > 0), "mismatches": mism, "of": out[..., 0].numel()}
+
+
+def compare_sad(*args, use=None) -> dict:
+    """K4 against its plain version: the largest difference of a sum, and
+    the rows (those in ``use``, else all) whose best of the 11 shifts moved."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+    sads = ck.sad_stereo(*args)
+    torch.cuda.synchronize()
+    plain = ck.sad_stereo_plain(*args)
+    moved = sads.argmin(-1) != plain.argmin(-1)
+    use = torch.ones_like(moved) if use is None else use
+    n = int(use.sum())
+    mism = int((moved & use).sum())
+    return {"max_abs_err": float((sads - plain).abs().max()), "mismatches": mism, "of": n,
+            "same": 1.0 - mism / max(n, 1)}
+
+
+COMPARE = {"fast_candidates": compare_fast, "gaussian_blur7": compare_blur,
+           "brief_sample": compare_brief, "sad_stereo": compare_sad}
+
+
+def hold_to_limits(name: str, r: dict, where: str) -> None:
+    """The limits of every kernel-against-plain check: K1 and K3 exact, K2
+    within ``K2_ATOL``, K4 within ``K4_ATOL`` with the same best shift on
+    ``K4_ARGMIN_SHARE`` of the rows."""
+    if name in ("fast_candidates", "brief_sample") and r["mismatches"]:
+        raise AssertionError(f"{name} ({where}): {r['mismatches']} of {r['of']} differ from "
+                             f"its plain version")
+    if name == "gaussian_blur7" and r["max_abs_err"] > K2_ATOL:
+        raise AssertionError(f"{name} ({where}): max_abs_err {r['max_abs_err']} > {K2_ATOL}")
+    if name == "sad_stereo" and (r["max_abs_err"] > K4_ATOL or r["same"] < K4_ARGMIN_SHARE):
+        raise AssertionError(f"{name} ({where}): max_abs_err {r['max_abs_err']}, same best "
+                             f"shift {r['same']:.5f}")
+
+
+def check_extraction_batch(cfg, pyr, atlas, tag: str) -> dict:
+    """K1, K2 and K3 over one (B, HA, W0) atlas against their plain versions,
+    each timed three ways beside its bound; keys end in ``_<tag>``."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
+    from orb_slam3_noted_tpu_torch.ops import orb as O
+
+    B = atlas.image.shape[0]
+    sizes = atlas.sizes
+    px = sum(h * w for h, w in sizes)
+    budgets = tuple(fast_ops.level_budgets(cfg.n_features, cfg.n_levels, cfg.scale_factor))
+    th, border = (cfg.ini_th_fast, cfg.min_th_fast), 16
+    lay = ck.candidate_layout(sizes, budgets)
+    blurred = ck.gaussian_blur7_plain(atlas.image, sizes)
+    det = O.detect_from_atlas(atlas, **extraction_args(cfg))
+    K = det.xy.shape[-2]
+    brief_args = (blurred, sizes, det.xy.to(torch.int32), det.angle, det.level)
+    scored = sum((h - 2 * border + 2) * (w - 2 * border + 2) for h, w in sizes)
+    n_full = sum(compass_pass_count([lv[b] for lv in pyr], th[1], border) for b in range(B))
+    cases = {
+        "fast_candidates": (
+            (atlas.image, sizes, budgets, *th, border),
+            lambda: ck.fast_candidates(atlas.image, sizes, budgets, *th, border),
+            lambda: ck.fast_candidates_plain(atlas.image, sizes, budgets, *th, border),
+            B * (4 * px + 8 * lay.n_cells * lay.k_max),
+            B * (27 + 11) * scored + (12 + 128 + 31) * n_full),
+        "gaussian_blur7": (
+            (atlas.image, sizes), lambda: ck.gaussian_blur7(atlas.image, sizes),
+            lambda: ck.gaussian_blur7_plain(atlas.image, sizes), B * 8 * px, B * 26 * px),
+        "brief_sample": (
+            brief_args, lambda: ck.brief_sample(*brief_args),
+            lambda: ck.brief_sample_atlas_plain(*brief_args),
+            B * K * (512 * 4 + 16 + 32), B * K * (512 * 8 + 256)),
+    }
+    res = {}
+    for name, (args, fn, plain, n_bytes, n_ops) in cases.items():
+        c = COMPARE[name](*args)
+        hold_to_limits(name, c, f"B={B}")
+        log(f"  {name} B={B}: {c['mismatches']} of {c['of']} differ, max_abs_err "
+            f"{c['max_abs_err']:.3g}" + (f"; {n_full} of {B * scored} scored pixels pass the "
+                                         f"compass test" if name == "fast_candidates" else ""))
+        r = {"max_abs_err": c["max_abs_err"], "mismatches": c["mismatches"],
+             **kernel_times(fn, name), **reference_times(plain, "plain")}
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, n_ops)
+        res[name] = {f"{k}_{tag}": v for k, v in r.items()}
     return res
+
+
+def check_batch_kernels(cfg, imgs, lefts, rights, dev) -> dict:
+    """K1, K2 and K3 over the (16, HA, W0) atlas of 16 images (a mono batch
+    dispatch, keys ``_b16``) and over the (32, HA, W0) atlas of 16 stereo
+    pairs (a stereo batch dispatch, ``_b32``), and K4 over those 16 pairs
+    (``_b16``), against their plain versions to the limits of the B = 1
+    checks; each timed three ways beside its bound.  Returns {name: {key:
+    value}}."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import image as image_ops
+    from orb_slam3_noted_tpu_torch.ops import orb as O
+    from orb_slam3_noted_tpu_torch.ops import stereo as S
+
+    def pyramid_atlas(images):
+        batch = torch.as_tensor(np.stack(images), dtype=torch.float32).to(dev)
+        pyr = tuple(image_ops.build_pyramid(batch, cfg.n_levels, cfg.scale_factor))
+        return pyr, image_ops.build_atlas(pyr)
+
+    res = {n: {} for n in COMPARE}
+    pyr2, atlas2 = pyramid_atlas(list(lefts) + list(rights))
+    for tag, (pyr, atlas) in (("b16", pyramid_atlas(imgs)), ("b32", (pyr2, atlas2))):
+        for name, r in check_extraction_batch(cfg, pyr, atlas, tag).items():
+            res[name].update(r)
+
+    # --- K4 over B pairs -------------------------------------------------------
+    B = len(lefts)
+    f2 = O.extract_from_atlas(atlas2, **extraction_args(cfg))
+    fl, fr = O.FrameFeatures(*(f[:B] for f in f2)), O.FrameFeatures(*(f[B:] for f in f2))
+    idx_r, have = S.hamming_candidates(fl, fr, cfg.bf, BASELINE, cfg.n_levels, cfg.scale_factor)
+    cv, cu, cur, _ = S.level_centres(fl, fr, idx_r, tuple(p[:B] for p in pyr2))
+    al, ar = atlas2.image[:B], atlas2.image[B:]
+    sargs = (al, ar, cv, cu, cur, fl.level.contiguous(), atlas2.off, atlas2.h, atlas2.w)
+    c = compare_sad(*sargs, use=have & fl.valid)
+    hold_to_limits("sad_stereo", c, f"{B} pairs")
+    log(f"  sad_stereo B={B} pairs: max_abs_err {c['max_abs_err']:.3g}, same best shift "
+        f"{c['same']:.5f} of {c['of']} candidates")
+    K4 = cv.shape[-1]
+    r = {"max_abs_err": c["max_abs_err"], "mismatches": c["mismatches"],
+         **kernel_times(lambda: ck.sad_stereo(*sargs), "sad_stereo"),
+         **reference_times(lambda: ck.sad_stereo_plain(*sargs), "plain")}
+    r["bound_ms"], r["bound_by"] = bound_ms(B * K4 * ((121 + 231) * 4 + 4 * 4 + 11 * 4),
+                                            B * K4 * 11 * 121 * 3)
+    res["sad_stereo"].update({f"{k}_b16": v for k, v in r.items()})
+    return res
+
+
+class _Keeping:
+    """A wrapper in a kernel wrapper's place in its module: keeps the first
+    input of each shape, then calls the wrapper.  The wrapper counts its
+    launches in ``<its module-level name>.launches``, which names this
+    stand-in while it is in place, so the count is passed through."""
+
+    def __init__(self, fn, seen: dict):
+        self.fn, self.seen = fn, seen
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, *args):
+        import torch
+
+        key = tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+                    for a in args)
+        if key not in self.seen:
+            self.seen[key] = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
+        return self.fn(*args)
+
+
+class KernelInputs:
+    """While a lap runs, keeps the inputs of each kernel wrapper's first call
+    at every distinct shape (a copy on the device), so that the kernel can be
+    held against its plain version on exactly what the lap gave it; the
+    wrapper itself is called as before and counts its launch as before."""
+
+    def __init__(self):
+        self.seen = {name: {} for name in COMPARE}
+
+    def __enter__(self):
+        from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+        self.orig = {name: getattr(ck, name) for name in COMPARE}
+        for name, fn in self.orig.items():
+            setattr(ck, name, _Keeping(fn, self.seen[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+        for name, fn in self.orig.items():
+            setattr(ck, name, fn)
+
+    def check(self, lap: str) -> dict:
+        """Every kept input against the plain version; returns {name: the
+        largest max_abs_err over them}."""
+        out = {}
+        for name, inputs in self.seen.items():
+            for args in inputs.values():
+                c = COMPARE[name](*args)
+                shape = tuple(args[0].shape)
+                hold_to_limits(name, c, f"{lap}, input {shape}")
+                log(f"  [{lap}] {name} on the lap's input {shape}: {c['mismatches']} of "
+                    f"{c['of']} differ, max_abs_err {c['max_abs_err']:.3g}")
+                out[name] = max(out.get(name, 0.0), c["max_abs_err"])
+        self.seen = {name: {} for name in COMPARE}
+        return out
+
+
+def check_dense_fast(cfg, left_u8, dev) -> dict:
+    """K1's single-level form (``fast_score``, the dense score map) on lap
+    frame 0's full-size level, against its plain version, timed; off every
+    lap's path (the laps launch it 0 times)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+    img = torch.as_tensor(left_u8, dtype=torch.float32).to(dev)
+    out, ref = ck.fast_score(img), ck.fast_score_plain(img)
+    torch.cuda.synchronize()
+    mism = int((out != ref).sum())
+    log(f"  fast_score (dense, {tuple(img.shape)}): {mism} of {img.numel()} scores differ")
+    if mism:
+        raise AssertionError("the dense K1 must match its plain version exactly")
+    return {"max_abs_err": float((out - ref).abs().max()), "mismatches": mism,
+            **kernel_times(lambda: ck.fast_score(img), "fast_score"),
+            **reference_times(lambda: ck.fast_score_plain(img), "plain"),
+            "library_ms": None,
+            # every pixel read and its score written; 16 ring differences, 4 x
+            # 16 minima and as many maxima, 2 x 15 + 1 to reduce them
+            "bytes": 8 * img.numel(), "ops": (16 + 128 + 31) * img.numel()}
 
 
 def lap_errors(slam, poses):
@@ -581,11 +884,196 @@ def run_stereo_lap(cfg, poses, frames, ref, dev) -> dict:
     return launches
 
 
-def load_fixture(path: str) -> dict:
+class DispatchCounter:
+    """Counts a facade's extraction dispatches: each batch of tracking
+    (``_batch_track``), each batch of initialisation attempts
+    (``_init_consume_timed``) and each frame-by-frame frame (``process``)."""
+
+    def __init__(self, slam, methods):
+        self.n = {m: 0 for m in methods}
+        for m in methods:
+            setattr(slam, m, self._wrap(m, getattr(slam, m)))
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kw):
+            self.n[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+
+def drive_batches(slam, frames, ids, per_frame_until_init: bool):
+    """``process`` until initialised where asked, then ``process_batch`` in
+    batches of ``BATCH``; returns the lap's wall seconds (the card synced at
+    the end)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i = 0
+    while per_frame_until_init and i < len(frames) and slam.state == "NOT_INITIALIZED":
+        slam._process_one(frames[i], ids[i])
+        i += 1
+    while i < len(frames):
+        j = min(i + BATCH, len(frames))
+        slam.process_batch(frames[i:j], ids[i:j])
+        i = j
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def fixture_draws(ref: dict):
+    """A stand-in for ``MonoSLAM._minimal_sets`` that returns the JAX run's
+    RANSAC minimal sets (``init_draws`` of the fixture, by seed), so that the
+    port's initialisation attempts test the hypotheses the JAX package's
+    did; it keeps each attempt batch's match mask, (seed, mask), for
+    :func:`match_mask_agreement`.  Asked for draws the JAX run never made,
+    it raises: the port then initialises in another batch than JAX did."""
+    import base64
+
+    import torch
+
+    by_seed = {d["seed"]: d for d in ref["init_draws"]}
+    asked = []
+
+    def draws(valid, seed):
+        d = by_seed.get(int(seed))
+        if d is None or list(valid.shape) != d["shape"][:-2] + [d["n"]]:
+            raise AssertionError(
+                f"mono lap: initialisation attempts with seed {seed}, masks {tuple(valid.shape)}; "
+                f"the JAX run drew for {[(x['seed'], x['shape']) for x in ref['init_draws']]}")
+        asked.append((int(seed), valid))
+        sets = np.frombuffer(base64.b64decode(d["sets"]), "<i2").reshape(d["shape"])
+        return torch.from_numpy(sets.astype(np.int64)).to(valid.device)
+
+    draws.asked = asked
+    return draws
+
+
+def match_mask_agreement(ref: dict, asked) -> tuple[int, int, int, int]:
+    """(attempts whose match mask equals the JAX run's, attempts, mask
+    entries that differ, entries) over the attempts the lap made."""
+    import base64
+
+    by_seed = {d["seed"]: d for d in ref["init_draws"]}
+    same = rows = diff = entries = 0
+    for seed, valid in asked:
+        d = by_seed[seed]
+        packed = np.frombuffer(base64.b64decode(d["matched"]), np.uint8).reshape(d["shape"][0], -1)
+        jax_mask = np.unpackbits(packed, axis=-1, count=d["n"]).astype(bool)
+        port = valid.cpu().numpy()
+        same += int((port == jax_mask).all(axis=-1).sum())
+        rows += port.shape[0]
+        diff += int((port != jax_mask).sum())
+        entries += port.size
+    return same, rows, diff, entries
+
+
+def run_mono_lap(poses, imgs, ref, dev, smi) -> tuple[dict, float]:
+    """``MonoSLAM.process_batch`` over ``bench.py``'s lap from frame 0, on
+    the JAX run's RANSAC draws, held to the JAX run; returns (launch counts,
+    frames/s)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    n = len(imgs)
+    staged = torch.from_numpy(imgs).to(dev)        # staged on the card once, as bench.py does
+    frames = [staged[i] for i in range(n)]
+    slam = MonoSLAM(mono_config(), device=dev)
+    slam._minimal_sets = draws = fixture_draws(ref)
+    count = DispatchCounter(slam, ("_batch_track", "_init_consume_timed"))
+    ck.reset_launch_counts()
+    wall = drive_batches(slam, frames, list(range(n)), per_frame_until_init=False)
+    launches = ck.launch_counts()
+    same, rows, diff, entries = match_mask_agreement(ref, draws.asked)
+    log(f"[mono] RANSAC: the JAX run's draws for seeds {[s for s, _ in draws.asked]}; the "
+        f"port's match masks equal the JAX run's in {same} of {rows} attempts ({diff} of "
+        f"{entries} entries differ)")
+
+    states = [r.state for r in slam.trajectory]
+    if len(states) != n:
+        raise AssertionError(f"mono lap: {len(states)} records for {n} frames")
+    est = slam.positions()
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("mono lap: non-finite positions")
+    kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
+    init = next((i for i, st in enumerate(states) if st == "OK"), None)
+    if init is None or not kf_frames:
+        raise AssertionError(f"mono lap: never initialised (states {states[:20]}...)")
+    use = [kf_frames[0]] + list(range(init, n))
+    gt = np.asarray([t for _, t in poses])
+    ate, _, (_, _, scale) = ate_rmse(est[use], gt[use], with_scale=True)
+    tracked = sum(st == "OK" for st in states)
+    for i, rec in enumerate(slam.trajectory):
+        if i < init + 2 or i % 10 == 0 or rec.state != "OK":
+            log(f"[mono] frame {i:3d} {rec.state:<16} inliers {rec.n_inliers:4d} "
+                f"(JAX {ref['n_inliers'][i]:4d})")
+    fps = n / wall
+    log(f"[mono] initialised at frame {init} (JAX {ref['init_frame']}), tracked {tracked}/{n} "
+        f"(JAX {ref['tracked']}), Sim(3) ATE {ate:.5f} (JAX {ref['ate_m']:.5f}, scale {scale:.3f}), "
+        f"keyframes {slam.n_kf} at {kf_frames} (JAX {ref['n_kf']} at {ref['kf_frame_ids']}), "
+        f"map points {slam.n_mp} (JAX {ref['n_mp']})")
+    log(f"[mono] {fps:.2f} frames/s over the {n}-frame lap ({wall:.2f} s, initialisation "
+        f"included; {smi})")
+    dispatches = sum(count.n.values())
+    log(f"[mono] launches {launches}; extraction dispatches {count.n}")
+    want = {"fast_candidates": dispatches, "gaussian_blur7": dispatches,
+            "brief_sample": dispatches, "sad_stereo": 0, "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"mono lap: launch counts {launches}, expected {want}")
+    if init > ref["init_frame"] + MONO_INIT_MARGIN:
+        raise AssertionError(f"mono lap: initialised at {init}, JAX at {ref['init_frame']}")
+    if tracked < ref["tracked"] - MONO_TRACKED_MARGIN:
+        raise AssertionError(f"mono lap: tracked {tracked} < {ref['tracked']} - {MONO_TRACKED_MARGIN}")
+    if ate > RMSE_FACTOR * ref["ate_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"mono lap: ATE {ate:.5f} > 2 x {ref['ate_m']:.5f} + 2 mm")
+    if abs(slam.n_kf - ref["n_kf"]) > MONO_KF_MARGIN:
+        raise AssertionError(f"mono lap: {slam.n_kf} keyframes, JAX run {ref['n_kf']}")
+    return launches, fps
+
+
+def run_stereo_batch_lap(cfg, poses, frames, ref, dev, smi) -> tuple[dict, float]:
+    """``StereoSLAM``: ``process`` until initialised, then ``process_batch``
+    in batches of 16 over the lap's pairs (staged on the card), held to the
+    JAX run; returns (launch counts, frames/s)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.system import StereoSLAM
+
+    n = len(frames)
+    staged = torch.from_numpy(np.stack([f[0] for f in frames] + [f[1] for f in frames])).to(dev)
+    pairs = [(staged[i], staged[n + i]) for i in range(n)]
+    slam = StereoSLAM(cfg, device=dev)
+    count = DispatchCounter(slam, ("_batch_track", "process"))
+    ck.reset_launch_counts()
+    wall = drive_batches(slam, pairs, list(range(n)), per_frame_until_init=True)
+    launches = ck.launch_counts()
+
+    est, rmse, tracked = lap_errors(slam, poses)
+    kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
+    fps = n / wall
+    log(f"[stereo batch] tracked {tracked}/{n} (JAX {ref['tracked']}), rmse {rmse:.5f} m "
+        f"(JAX {ref['rmse_m']:.5f}), keyframes {slam.n_kf} at {kf_frames} (JAX {ref['n_kf']} at "
+        f"{ref['kf_frame_ids']}), map points {slam.n_mp} (JAX {ref['n_mp']})")
+    log(f"[stereo batch] {fps:.2f} frames/s over the {n}-pair lap ({wall:.2f} s; {smi})")
+    dispatches = sum(count.n.values())
+    log(f"[stereo batch] launches {launches}; extraction dispatches {count.n}")
+    want = {"fast_candidates": dispatches, "gaussian_blur7": dispatches,
+            "brief_sample": dispatches, "sad_stereo": dispatches, "fast_score": 0}
+    check_common("stereo batch lap", ref, launches, want, tracked, rmse)
+    if abs(slam.n_kf - ref["n_kf"]) > KF_MARGIN:
+        raise AssertionError(f"stereo batch lap: {slam.n_kf} keyframes, JAX run {ref['n_kf']}")
+    return launches, fps
+
+
+def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
-    if ref["frames"] != N_FRAMES:
-        raise AssertionError(f"{path}: {ref['frames']} frames, expected {N_FRAMES}")
+    if ref["frames"] != n_frames:
+        raise AssertionError(f"{path}: {ref['frames']} frames, expected {n_frames}")
     return ref
 
 
@@ -613,16 +1101,26 @@ def main() -> int:
             log(f"[build]   {line.strip()}")
 
     ref_rgbd, ref_stereo = load_fixture(FIXTURE), load_fixture(STEREO_FIXTURE)
+    ref_mono = load_fixture(MONO_FIXTURE, MONO_FRAMES)
+    ref_stereo_batch = load_fixture(STEREO_BATCH_FIXTURE)
     cfg = lap_config()
     t0 = time.perf_counter()
     poses, frames = lap_inputs(N_FRAMES)
-    log(f"[lap] rendered {N_FRAMES} stereo pairs with depth in {time.perf_counter() - t0:.1f} s")
+    mono_poses, mono_imgs = mono_inputs()
+    log(f"[lap] rendered {N_FRAMES} stereo pairs with depth and {MONO_FRAMES} mono frames in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     log("[kernels] kernel vs plain version on the card, lap frame 0")
     floor = check_launch_floor(dev)
     log(f"  launch floor: an empty kernel lasts {floor:.5f} ms on the device")
     kres = check_kernels(cfg, frames[0][0], frames[0][1], dev)
     kres["sad_stereo"] = check_sad(cfg, frames[0][0], frames[0][1], dev)
+    kres["fast_score"] = check_dense_fast(cfg, frames[0][0], dev)
+    log(f"[kernels] batch shapes: K1-K3 over the mono lap's first {BATCH} frames and over the "
+        f"first {BATCH} stereo pairs' {2 * BATCH} images, K4 over those pairs")
+    for name, r in check_batch_kernels(cfg, mono_imgs[:BATCH], [f[0] for f in frames[:BATCH]],
+                                       [f[1] for f in frames[:BATCH]], dev).items():
+        kres[name].update(r)
     for r in kres.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r["bytes"], r["ops"])
         # each kernel is one launch: it cannot end sooner than an empty one
@@ -645,20 +1143,52 @@ def main() -> int:
         if "ms_pair" in r:
             log(f"  {'':<15} stereo pair (B=2): kernel {ms(r['ms_pair'])} / "
                 f"{ms(r['per_call_ms_pair'])} (host {ms(r['host_ms_pair'])})")
+        for b in (16, 32):
+            if f"ms_b{b}" in r:
+                t = {k[:-len(f"_b{b}")]: v for k, v in r.items() if k.endswith(f"_b{b}")}
+                log(f"  {'':<15} B={b}: kernel {ms(t['ms'])} / {ms(t['per_call_ms'])} (host "
+                    f"{ms(t['host_ms'])})  plain {ms(t['plain_ms'])} / "
+                    f"{ms(t['plain_per_call_ms'])}  bound {t['bound_ms']:.5f} ({t['bound_by']})")
 
-    launches_rgbd = run_rgbd_lap(cfg, poses, frames, ref_rgbd, dev)
-    launches = run_stereo_lap(cfg, poses, frames, ref_stereo, dev)
+    # each lap with the counts set to 0 just before it and read just after;
+    # then each kernel against its plain version on every input shape the
+    # lap gave it
+    by_lap, lap_err = {}, {}
 
-    # `launches` are the stereo lap's (the path that runs all four kernels).
-    # `ms`, `plain_ms` and `library_ms` are device times; every other time
-    # the kernel phase measured rides along under its own key.
+    def lap(tag, run, *args):
+        with KernelInputs() as kept:
+            out = run(*args)
+        lap_err[tag] = kept.check(tag)
+        return out
+
+    by_lap["rgbd_lap"] = lap("rgbd_lap", run_rgbd_lap, cfg, poses, frames, ref_rgbd, dev)
+    by_lap["stereo_lap"] = lap("stereo_lap", run_stereo_lap, cfg, poses, frames, ref_stereo, dev)
+    by_lap["mono_lap"], fps_mono = lap("mono_lap", run_mono_lap, mono_poses, mono_imgs,
+                                       ref_mono, dev, smi)
+    by_lap["stereo_batch_lap"], fps_sb = lap("stereo_batch_lap", run_stereo_batch_lap, cfg, poses,
+                                             frames, ref_stereo_batch, dev, smi)
+    log(f"[laps] frames/s: mono {fps_mono:.2f} (process_batch, B={BATCH}, {MONO_FRAMES} frames), "
+        f"stereo batch {fps_sb:.2f} ({N_FRAMES} pairs); {smi}")
+    for name in COMPARE:
+        errs = [e[name] for e in lap_err.values() if name in e]
+        kres[name]["max_abs_err_laps"] = max(errs)
+        # `max_abs_err`: the largest of every check (B = 1, 2, 16, 32, the laps)
+        kres[name]["max_abs_err"] = max(v for k, v in kres[name].items()
+                                        if k.startswith("max_abs_err"))
+
+    # `launches` adds up every lap's; `ms`, `plain_ms` and `library_ms` are
+    # device times; every other time the kernel phase measured rides along
+    # under its own key (``_pair``: B = 2, ``_b16``: B = 16).
     timed = lambda r: {k: v for k, v in r.items()
-                       if k.endswith("_ms") or "ms_" in k or k in ("ms", "bound_by", "max_abs_err")}
+                       if k == "ms" or k.endswith("_ms") or "ms_" in k or k.startswith("bound_by")
+                       or k.startswith("max_abs_err")}
     kernels = [
         {
             "name": name, "route": "cuda", "source": KERNEL_SOURCES[name][0],
-            "replaces": KERNEL_SOURCES[name][1], "launches": launches[name],
-            "launches_rgbd_lap": launches_rgbd[name], **timed(kres[name]),
+            "replaces": KERNEL_SOURCES[name][1],
+            "launches": sum(lap[name] for lap in by_lap.values()),
+            "launches_by_lap": {k: lap[name] for k, lap in by_lap.items()},
+            **timed(kres[name]),
         }
         for name in KERNEL_SOURCES
     ]

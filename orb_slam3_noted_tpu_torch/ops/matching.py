@@ -16,7 +16,6 @@ from typing import NamedTuple
 import torch
 
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
-from orb_slam3_noted_tpu_torch.utils.interop import set_scalar
 
 TH_HIGH = 100  # reference ORBmatcher::TH_HIGH
 TH_LOW = 50    # reference ORBmatcher::TH_LOW
@@ -25,19 +24,21 @@ BIG = 1 << 20
 
 
 def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
-    """(N, 8) int32 -> (N, 256) float32 0/1 bit matrix (bit order = pack order)."""
+    """(..., N, 8) int32 -> (..., N, 256) float32 0/1 bit matrix (bit order =
+    pack order)."""
     shifts = torch.arange(32, dtype=torch.int32, device=desc.device)
-    bits = (desc[:, :, None] >> shifts) & 1
-    return bits.reshape(desc.shape[0], 256).to(torch.float32)
+    bits = (desc[..., None] >> shifts) & 1
+    return bits.reshape(*desc.shape[:-1], 256).to(torch.float32)
 
 
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(Na, 8) x (Nb, 8) packed descriptors -> (Na, Nb) int32 Hamming distances."""
+    """(..., Na, 8) x (..., Nb, 8) packed descriptors -> (..., Na, Nb) int32
+    Hamming distances (leading dimensions broadcast)."""
     ba, bb = unpack_bits(a), unpack_bits(b)
-    dot = ba @ bb.T
+    dot = ba @ bb.transpose(-1, -2)
     pa = ba.sum(-1)
     pb = bb.sum(-1)
-    return (pa[:, None] + pb[None, :] - 2.0 * dot).to(torch.int32)
+    return (pa[..., :, None] + pb[..., None, :] - 2.0 * dot).to(torch.int32)
 
 
 class Matches(NamedTuple):
@@ -56,18 +57,17 @@ def _best_two(masked: torch.Tensor):
 
 
 def _rotation_consistency(ang_a, ang_b, idx, matched):
-    """Keep only matches whose angle difference falls in the 3 modal bins."""
-    d = ang_a - ang_b[idx.clamp(min=0).long()]
+    """Keep only matches whose angle difference falls in the 3 modal bins
+    (one histogram per leading batch entry)."""
+    d = ang_a - torch.gather(ang_b, -1, idx.clamp(min=0).long())
     d = torch.remainder(d, 2 * math.pi)
     bins = torch.clamp((d * (HISTO_LENGTH / (2 * math.pi))).to(torch.int32), 0, HISTO_LENGTH - 1)
-    hist = torch.zeros(HISTO_LENGTH, dtype=torch.int32, device=idx.device).index_add_(
-        0, bins.long(), matched.to(torch.int32)
-    )
+    hist = torch.zeros((*bins.shape[:-1], HISTO_LENGTH), dtype=torch.int32, device=idx.device)
+    hist = hist.scatter_add(-1, bins.long(), matched.to(torch.int32))
     top3 = topk_stable(hist, 3)[1]
-    keep_bin = torch.zeros(HISTO_LENGTH, dtype=torch.bool, device=idx.device)
-    set_scalar(keep_bin, top3, True)
-    keep_bin = keep_bin & (hist > 0.1 * torch.amax(hist))
-    return matched & keep_bin[bins.long()]
+    keep_bin = torch.zeros(hist.shape, dtype=torch.bool, device=idx.device).scatter(-1, top3, True)
+    keep_bin = keep_bin & (hist > 0.1 * torch.amax(hist, dim=-1, keepdim=True))
+    return matched & torch.gather(keep_bin, -1, bins.long())
 
 
 def match_nn(
@@ -80,15 +80,17 @@ def match_nn(
     ang_a: torch.Tensor | None = None,
     ang_b: torch.Tensor | None = None,
 ) -> Matches:
-    """Gated nearest-neighbour matching on a precomputed distance matrix."""
-    masked = torch.where(valid_a[:, None] & valid_b[None, :], dist, BIG)
+    """Gated nearest-neighbour matching on a precomputed (..., Na, Nb)
+    distance matrix (a leading batch of pairs is matched pair by pair)."""
+    masked = torch.where(valid_a[..., :, None] & valid_b[..., None, :], dist, BIG)
     best, second, idx = _best_two(masked)
     ok = (best <= max_dist) & valid_a
     if ratio < 1.0:
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     if mutual:
-        best_for_b = torch.argmin(masked, dim=0)
-        ok = ok & (best_for_b[idx.long()] == torch.arange(dist.shape[0], device=dist.device))
+        best_for_b = torch.argmin(masked, dim=-2)
+        ok = ok & (torch.gather(best_for_b, -1, idx.long())
+                   == torch.arange(dist.shape[-2], device=dist.device))
     if ang_a is not None and ang_b is not None:
         ok = _rotation_consistency(ang_a, ang_b, idx, ok)
     return Matches(idx=torch.where(ok, idx, -1), dist=torch.where(ok, best, BIG))

@@ -9,6 +9,9 @@ keypoint's own pyramid level on a level-stacked atlas per side (kernel K4,
 with the reference's gates and its median-based outlier filter
 (1.5 x 1.4 x median SAD).
 
+Every function takes a leading batch of pairs: then K4 runs once for all of
+them, over the (B, HA, W) atlases of each side.
+
 Also :func:`stereo_from_depth` for RGB-D (``ComputeStereoFromRGBD``).
 """
 
@@ -54,33 +57,33 @@ def level_centres(left: FrameFeatures, right: FrameFeatures, idx_r: torch.Tensor
     sy_t = const_tensor(tuple(H0 / p.shape[-2] for p in pyr_left), dtype, dev)
     lvl = left.level.long()
     sx, sy = sx_t[lvl], sy_t[lvl]
-    uR0 = right.xy[idx_r.long(), 0]
-    cu = torch.round((left.xy[:, 0] + 0.5) / sx - 0.5).to(torch.int32)
-    cv = torch.round((left.xy[:, 1] + 0.5) / sy - 0.5).to(torch.int32)
+    uR0 = torch.gather(right.xy[..., 0], -1, idx_r.long())
+    cu = torch.round((left.xy[..., 0] + 0.5) / sx - 0.5).to(torch.int32)
+    cv = torch.round((left.xy[..., 1] + 0.5) / sy - 0.5).to(torch.int32)
     cur = torch.round((uR0 + 0.5) / sx - 0.5).to(torch.int32)
     return cv, cu, cur, sx
 
 
 def hamming_candidates(left: FrameFeatures, right: FrameFeatures, bf: float, baseline: float,
                        n_levels: int = 8, scale_factor: float = 1.2):
-    """(idx_r (NL,) int64, have (NL,) bool): best right candidate per left
-    keypoint under the row, octave and disparity gates, first index on
+    """(idx_r (..., NL) int64, have (..., NL) bool): best right candidate per
+    left keypoint under the row, octave and disparity gates, first index on
     ties."""
     sf = const_tensor(tuple(scale_factors(n_levels, scale_factor).tolist()), left.xy.dtype,
                 left.xy.device)
     max_d = bf / baseline
     th_orb = (M.TH_HIGH + M.TH_LOW) // 2
-    d = M.hamming_matrix(left.desc, right.desc)  # (NL, NR)
+    d = M.hamming_matrix(left.desc, right.desc)  # (..., NL, NR)
     row_tol = 2.0 * sf[right.level.long()]       # reference: 2 x right scale
-    dv = torch.abs(left.xy[:, None, 1] - right.xy[None, :, 1])
-    row_ok = dv <= row_tol[None, :]
-    lvl_ok = torch.abs(left.level[:, None] - right.level[None, :]) <= 1
-    disp = left.xy[:, None, 0] - right.xy[None, :, 0]
+    dv = torch.abs(left.xy[..., :, None, 1] - right.xy[..., None, :, 1])
+    row_ok = dv <= row_tol[..., None, :]
+    lvl_ok = torch.abs(left.level[..., :, None] - right.level[..., None, :]) <= 1
+    disp = left.xy[..., :, None, 0] - right.xy[..., None, :, 0]
     disp_ok = (disp >= 0.0) & (disp <= max_d)
-    gate = row_ok & lvl_ok & disp_ok & left.valid[:, None] & right.valid[None, :]
+    gate = row_ok & lvl_ok & disp_ok & left.valid[..., :, None] & right.valid[..., None, :]
     masked = torch.where(gate, d, M.BIG)
-    best = torch.amin(masked, dim=1)
-    idx_r = torch.argmin(masked, dim=1)
+    best = torch.amin(masked, dim=-1)
+    idx_r = torch.argmin(masked, dim=-1)
     return idx_r, best < th_orb
 
 
@@ -101,25 +104,26 @@ def match_stereo(
     :func:`..image.build_pyramid`, for the SAD refinement at the keypoint's
     own pyramid level.  ``atlases``: their (left, right)
     :class:`..image.PyramidAtlas`, where the caller already built them for
-    extraction; built here otherwise.
+    extraction; built here otherwise.  Fields, levels and atlases may carry
+    a leading batch of pairs.
     """
-    NL = left.xy.shape[0]
+    NL = left.xy.shape[-2]
     dtype = left.xy.dtype
     max_d = bf / baseline
     idx_r, have = hamming_candidates(left, right, bf, baseline, n_levels, scale_factor)
 
-    uL0 = left.xy[:, 0]
+    uL0 = left.xy[..., 0]
     cv, cu, cur, sx = level_centres(left, right, idx_r, pyr_left)
     al, ar = atlases if atlases is not None else (build_atlas(pyr_left), build_atlas(pyr_right))
     sads = ck.sad_stereo(al.image, ar.image, cv, cu, cur, left.level.contiguous(),
-                         al.off, al.h, al.w)     # (NL, 11)
+                         al.off, al.h, al.w)     # (..., NL, 11)
 
-    k = torch.argmin(sads, dim=1)
+    k = torch.argmin(sads, dim=-1)
     interior = (k > 0) & (k < 2 * _L)
     km = torch.clamp(k, 1, 2 * _L - 1)
-    d1 = torch.gather(sads, 1, (km - 1)[:, None])[:, 0]
-    d2 = torch.gather(sads, 1, km[:, None])[:, 0]
-    d3 = torch.gather(sads, 1, (km + 1)[:, None])[:, 0]
+    d1 = torch.gather(sads, -1, (km - 1)[..., None])[..., 0]
+    d2 = torch.gather(sads, -1, km[..., None])[..., 0]
+    d3 = torch.gather(sads, -1, (km + 1)[..., None])[..., 0]
     denom = d1 + d3 - 2.0 * d2
     delta = torch.where(torch.abs(denom) > 1e-9, (d1 - d3) / (2.0 * denom), 0.0)
     good_delta = (delta >= -1.0) & (delta <= 1.0) & interior
@@ -140,9 +144,9 @@ def match_stereo(
 
     # median SAD outlier filter (1.5 * 1.4 * median)
     sadv = torch.where(ok, sad_best, inf)
-    n_ok = torch.sum(ok)
-    sorted_sad = torch.sort(sadv).values
-    med = sorted_sad[torch.clamp(n_ok // 2, 0, NL - 1)]
+    n_ok = torch.sum(ok, dim=-1, keepdim=True)
+    sorted_sad = torch.sort(sadv, dim=-1).values
+    med = torch.gather(sorted_sad, -1, torch.clamp(n_ok // 2, 0, NL - 1))
     keep = ok & (sad_best < 1.5 * 1.4 * med)
 
     return StereoMatches(

@@ -1,24 +1,33 @@
 """SLAM system facades (port of :mod:`orb_slam3_noted_tpu.pipeline.system`).
 
-``StereoSLAM`` and ``RGBDSLAM`` run frame by frame as full SLAM with loop
-closing off: single-frame initialisation from stereo depth, then per frame
-ORB extraction (both images for stereo, matched by
-:func:`..ops.stereo.match_stereo`), local-map projection matching and
-motion-only pose optimisation, the OK / RECENTLY_LOST / LOST state machine,
-the relative-pose trajectory records, and at every keyframe decision the
-synchronous mapper (:func:`..tracking.insert_keyframe_step`) with slot
-recycling and map-point compaction.  ``set_localization_mode(True)`` freezes
-the map.
+``MonoSLAM``, ``StereoSLAM`` and ``RGBDSLAM`` run full SLAM with loop closing
+off.  Monocular: two-view initialisation (``Tracking::
+MonocularInitialization``, :func:`..tracking.init_attempt_batch`), the
+initial map from its triangulated points and a BA over both keyframes, then
+per frame extraction, local-map projection matching and motion-only pose
+optimisation.  Stereo and RGB-D: single-frame initialisation from depth,
+then the same tracking with stereo rows.  All three share the OK /
+RECENTLY_LOST / LOST state machine, the relative-pose trajectory records,
+and at every keyframe decision the synchronous mapper
+(:func:`..tracking.insert_keyframe_step`) with slot recycling and map-point
+compaction.  ``set_localization_mode(True)`` freezes the map.
+
+``process`` takes one frame; ``process_batch`` (mono and stereo) takes a
+batch: extraction once for all its frames, tracking frame after frame on
+the device, one device-to-host copy of everything the host walks per
+dispatch, and the keyframe policy evaluated per frame.
 
 What is not ported raises ``NotImplementedError`` naming its step in
-ROADMAP.md (next steps): monocular initialisation and batch mode (1),
-relocalisation and loop closing (2).  Without a relocalisation database a
-lost frame stays lost until projection matching recovers.
+ROADMAP.md (next steps): relocalisation and loop closing (2).  Without a
+relocalisation database a lost frame stays lost until projection matching
+recovers.
 
 All state lives on the constructor's ``device`` (the CUDA device unless the
 caller names another); the host holds the scalar counters, the trajectory
 records (numpy) and the state machine.  The map-point allocation pointer
-``n_mp`` is a plain int, read back once per keyframe.
+``n_mp`` is a plain int, read back once per keyframe.  The RANSAC draws of
+the monocular initialisation come from a ``torch.Generator`` on that device
+seeded with the frame id (:meth:`MonoSLAM._minimal_sets`).
 """
 
 from __future__ import annotations
@@ -29,8 +38,11 @@ import numpy as np
 import torch
 
 from orb_slam3_noted_tpu_torch.geometry import se3
+from orb_slam3_noted_tpu_torch.geometry import twoview as TV
 from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
 from orb_slam3_noted_tpu_torch.ops import image as I
+from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
@@ -49,6 +61,13 @@ STEREO_RANGE = "stereo_matching"
 # inside extraction: the pyramid and its atlas here, the rest in ops/orb.py
 PYRAMID_RANGE = "pyramid"
 EXTRACTION_PARTS = (PYRAMID_RANGE, O.SELECT_RANGE, O.ANGLE_RANGE, O.DESCRIBE_RANGE)
+# the facade's stages: initialisation attempts, a batch dispatch, a re-track
+# after a mid-batch keyframe, and the mapper pass of a keyframe
+INIT_RANGE = "initialize"
+TRACK_BATCH_RANGE = "track_batch"
+RETRACK_RANGE = "track_batch_feats"
+KEYFRAME_RANGE = "insert_keyframe"
+STAGES = (INIT_RANGE, TRACK_BATCH_RANGE, RETRACK_RANGE, KEYFRAME_RANGE)
 
 
 def _todo(what: str, step: int):
@@ -57,6 +76,29 @@ def _todo(what: str, step: int):
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _pull(*xs: torch.Tensor) -> list:
+    """One device-to-host copy of several tensors: flattened to float32
+    (every value that passes here is a float32 or an integer below 2^24),
+    copied at once, and split back into numpy arrays of their shapes and
+    kinds (bool, int64 or float32)."""
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs]).cpu().numpy()
+    out, o = [], 0
+    for x in xs:
+        a = flat[o:o + x.numel()].reshape(x.shape)
+        o += x.numel()
+        if x.dtype == torch.bool:
+            a = a != 0
+        elif not x.is_floating_point():
+            a = a.astype(np.int64)
+        out.append(a)
+    return out
+
+
+def _frame(feats: O.FrameFeatures, i) -> O.FrameFeatures:
+    """Row ``i`` (an index or a slice) of batched features."""
+    return O.FrameFeatures(*(f[i] for f in feats))
 
 
 @dataclass
@@ -111,6 +153,8 @@ class MonoSLAM:
         self._dead_slots: set[int] = set()  # culled slots already fixed up
         self._refill_cooldown = 0
         self.state = NOT_INITIALIZED
+        self.ref_feats = None  # monocular initialisation's reference frame
+        self.ref_frame_id = None
         self.vel = None  # relative motion (R, t): Tcw_k = vel o Tcw_{k-1}
         self.last_Rcw = torch.eye(3, dtype=torch.float32, device=self.device)
         self.last_tcw = torch.zeros(3, dtype=torch.float32, device=self.device)
@@ -228,14 +272,335 @@ class MonoSLAM:
             self.state = LOST if self.lost_frames > self.lost_patience else RECENTLY_LOST
 
     # ------------------------------------------------------------------
-    def process(self, img, frame_id: int):
-        raise _todo("monocular initialisation and tracking", 1)
+    def _last_pose(self):
+        """(Rcw, tcw) of the last record as tensors on the device (a record
+        made from a batch's host copy holds numpy arrays)."""
+        return tuple(torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                     for x in (self.last_Rcw, self.last_tcw))
 
-    def process_batch(self, imgs, frame_ids):
-        raise _todo("batch (throughput) mode", 1)
+    def _velocity(self):
+        """The motion model as tensors on the device, identity when none."""
+        if self.vel is None:
+            return (torch.eye(3, dtype=torch.float32, device=self.device),
+                    torch.zeros(3, dtype=torch.float32, device=self.device))
+        return tuple(torch.as_tensor(x, dtype=torch.float32, device=self.device) for x in self.vel)
+
+    def _on_device(self, img, dtype) -> torch.Tensor:
+        """An image (numpy or a tensor) on the device as ``dtype``."""
+        return torch.as_tensor(np.asarray(img) if not isinstance(img, torch.Tensor) else img
+                               ).to(self.device, dtype)
+
+    def _prediction(self):
+        """Constant-velocity prediction of the next pose, else the last pose."""
+        last = self._last_pose()
+        return se3.compose(self._velocity(), last) if self.vel is not None else last
+
+    # ------------------------------------------------------------------
+    def process(self, img, frame_id: int):
+        """Feed one grayscale image (H, W), values in [0, 255]."""
+        if self.state == NOT_INITIALIZED:
+            with torch.profiler.record_function(INIT_RANGE):
+                with torch.profiler.record_function(EXTRACTION_RANGE):
+                    feats = self._extract(self._on_device(img, torch.float32))
+                self._try_initialize(feats, frame_id)
+        else:
+            self._track_fused(self._on_device(img, torch.uint8), frame_id)
+        return self.trajectory[-1] if self.trajectory else None
+
+    def _track_fused(self, img_u8, frame_id):
+        Rp, tp = self._prediction()
+        self.m, feats, Rcw, tcw, n_inl, mp_of_feat = T.track_step(
+            self.m, img_u8, self.last_kf_slot, Rp, tp, self.cam, self.cfg, bf=0.0,
+        )
+        self._mp_remap = None  # fresh bindings against the current map
+        self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, int(n_inl), mp_of_feat)
+
+    # ------------------------------------------------------------------
+    def _minimal_sets(self, valid: torch.Tensor, seed: int) -> torch.Tensor:
+        """RANSAC minimal sets of an initialisation attempt, (n_hyp, 8) for a
+        (N,) match mask or (B, n_hyp, 8) for (B, N): drawn from a generator
+        on the facade's device seeded with the frame id (the JAX package
+        seeds its key with it)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return TV.sample_minimal_sets(valid, T.N_HYP, g)
 
     def _try_initialize(self, feats, frame_id):
-        raise _todo("monocular two-view initialisation", 1)
+        """One two-view attempt of this frame against the reference frame;
+        the first frame (and any frame that matches too little) becomes the
+        reference."""
+        eye = torch.eye(3, dtype=torch.float32, device=self.device)
+        if self.ref_feats is None:
+            self.ref_feats = feats
+            self.ref_frame_id = frame_id
+            self._record(frame_id, eye, torch.zeros(3, dtype=torch.float32, device=self.device), 0)
+            return
+        ref = self.ref_feats
+        mm = M.match_nn(
+            M.hamming_matrix(ref.desc, feats.desc), ref.valid, feats.valid, max_dist=M.TH_LOW,
+            ratio=0.9, mutual=True, ang_a=ref.angle, ang_b=feats.angle,
+        )
+        idx = mm.idx
+        matched = idx >= 0
+        rays1 = cam_mod.unproject(self.cam, ref.xy)
+        rays2 = cam_mod.unproject(self.cam, feats.xy[idx.clamp(min=0).long()])
+        # the reconstruction runs whatever the match count; the host branches
+        # on what comes back in one copy
+        res = TV.reconstruct_two_views(
+            rays1, rays2, matched, self._minimal_sets(matched, frame_id),
+            err_thresh=3.84 / (self.cam.fx * self.cam.fx),
+        )
+        n_matches, success, good, pts1_np, R21_np, t21_np = _pull(
+            torch.sum(matched), res.success, res.is_inlier, res.points1, res.R21, res.t21)
+        if int(n_matches) < 100:
+            # matching too weak: this frame becomes the reference
+            self.ref_feats = feats
+            self.ref_frame_id = frame_id
+            self._record(frame_id, self.last_Rcw, self.last_tcw, 0)
+            return
+        if not bool(success):
+            self._record(frame_id, self.last_Rcw, self.last_tcw, 0)
+            return
+        self._finish_initialize(feats, frame_id, idx, good, res.points1, res.R21, res.t21,
+                                pts1_np, R21_np, t21_np)
+
+    def _finish_initialize(self, feats, frame_id, idx, good, pts1_dev, R21_dev, t21_dev,
+                           pts1_np, R21_np, t21_np):
+        """The two-keyframe initial map of a successful reconstruction
+        (``CreateInitialMapMonocular``): median depth scaled to 1, keyframes
+        0 and 1, a point per inlier bound to both, then BA over the two."""
+        cfg = self.cfg
+        ref = self.ref_feats
+        dev = self.device
+        # too few accepted points would give a nan median and a nan-scaled map
+        if int(np.sum(good)) < 30:
+            self._record(frame_id, self.last_Rcw, self.last_tcw, 0)
+            return
+        med = float(np.median(pts1_np[:, 2][good]))
+        if not np.isfinite(med) or med <= 1e-6:
+            self._record(frame_id, self.last_Rcw, self.last_tcw, 0)
+            return
+        scale = 1.0 / max(med, 1e-6)
+        pts_w = pts1_dev * scale  # keyframe 0's frame is the world frame
+        t21 = t21_dev * scale
+        NF = cfg.n_features
+        nobind = torch.full((NF,), -1, dtype=torch.int32, device=dev)
+        no_uvr = torch.full((NF,), -1.0, dtype=torch.float32, device=dev)
+        m = MS.add_keyframe(
+            self.m, 0, torch.eye(3, dtype=torch.float32, device=dev),
+            torch.zeros(3, dtype=torch.float32, device=dev), int(self.ref_frame_id),
+            ref.xy, ref.level, ref.angle, ref.desc, ref.valid, nobind, no_uvr,
+        )
+        m = MS.add_keyframe(m, 1, R21_dev, t21, int(frame_id), feats.xy, feats.level,
+                            feats.angle, feats.desc, feats.valid, nobind, no_uvr)
+        # normal and scale range from keyframe 0's geometry
+        dist = torch.linalg.vector_norm(pts_w, dim=-1)
+        normal = pts_w / torch.clamp(dist, min=1e-9)[:, None]
+        sf = T._scale_table(cfg, pts_w)
+        dmax = dist * sf[ref.level.long()]
+        dmin = dmax / sf[cfg.n_levels - 1]
+        m = MS.add_map_points(
+            m, 0, pts_w, ref.desc, normal, dmin, dmax, 0, torch.from_numpy(good).to(dev),
+            0, torch.arange(NF, dtype=torch.int32, device=dev), 1, idx.clamp(min=0),
+        )
+        self.n_mp = int(np.sum(good))
+        self.n_kf = 2
+        self.kf_frame_ids[0] = int(self.ref_frame_id)
+        self.kf_frame_ids[1] = int(frame_id)
+        # keyframe 1's bindings came after its insertion: refresh its parent
+        m = MS.refresh_parent(m, 1)
+        # BA over the initial map (reference GlobalBundleAdjustemnt(20))
+        self.m = T.local_ba(m, 1, self.cam, cfg, window=1)
+        self.state = OK
+        self.last_kf_slot = 1
+        self.frames_since_kf = 0
+        self.tracked_at_kf = self.n_mp
+        self.vel = None
+        self._record(frame_id, R21_np, t21_np * scale, self.n_mp)
+
+    # ------------------------------------------------------------------
+    # batch mode; the hooks below are StereoSLAM's to override
+    def _process_one(self, frame, frame_id):
+        self.process(frame, frame_id)
+
+    def _on_batch_frame(self, frame_id):
+        """Per-committed-frame hook inside the batch walk (the inertial
+        facades' time bookkeeping); nothing for the visual ones."""
+
+    def _prep_batch(self, frames, n_pad):
+        """(B, H, W) uint8 on the device, the last frame repeated ``n_pad``
+        times; host frames go over in one copy."""
+        if isinstance(frames[0], torch.Tensor):
+            return torch.stack(list(frames) + [frames[-1]] * n_pad).to(self.device, torch.uint8)
+        batch = [np.asarray(f).astype(np.uint8) for f in frames]
+        return torch.from_numpy(np.stack(batch + [batch[-1]] * n_pad)).to(self.device)
+
+    def _batch_track(self, prep, vel, cm):
+        Rl, tl = self._last_pose()
+        self.m, Rs, ts, n_inls, feats_all, mp_feats = T.track_batch(
+            self.m, prep, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg, bf=0.0,
+            count_mask=cm,
+        )
+        return Rs, ts, n_inls, feats_all, mp_feats, None
+
+    def _batch_retrack(self, rolled, aux_rolled, vel, cm):
+        Rl, tl = self._last_pose()
+        self.m, Rs, ts, n_inls, _, mp_feats = T.track_batch_feats(
+            self.m, rolled, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg, bf=0.0,
+            count_mask=cm,
+        )
+        return Rs, ts, n_inls, mp_feats
+
+    @staticmethod
+    def _roll_aux(aux, pos):
+        return None if aux is None else tuple(torch.roll(x, -pos, dims=0) for x in aux)
+
+    @staticmethod
+    def _kf_extras(aux, d):
+        """(uvr, depth) rows of the keyframe frame at dispatch index d."""
+        return (None, None) if aux is None else (aux[0][d], aux[1][d])
+
+    def _close_counts(self, mp_feats, aux):
+        """(tracked_close, nontracked_close) per frame on the device, or None
+        (stereo/RGB-D only: the close-point trigger of ``NeedNewKeyFrame``)."""
+        if aux is None:
+            return None
+        close_th = (self.cfg.bf / self.cam.fx) * self.cfg.th_depth
+        close = (aux[1] > 0) & (aux[1] < close_th)
+        return (torch.sum((mp_feats >= 0) & close, dim=1),
+                torch.sum((mp_feats < 0) & close, dim=1))
+
+    def _host_copy(self, Rs, ts, n_inls, mp_feats, aux):
+        """What the host walks after a tracking dispatch, in one copy: inlier
+        counts, poses, the reference keyframe's pose (the trajectory records
+        are relative to it) and the close-point counts."""
+        self._mp_remap = None  # fresh bindings against the current map
+        cc = self._close_counts(mp_feats, aux)
+        n_np, Rs_np, ts_np, refR, reft, *cc_np = _pull(
+            n_inls, Rs, ts, self.m.kf_Rcw[self.last_kf_slot], self.m.kf_tcw[self.last_kf_slot],
+            *(cc or ()))
+        return n_np, Rs_np, ts_np, (self.last_kf_slot, refR, reft), (cc_np or None)
+
+    def process_batch(self, imgs, frame_ids):
+        """Throughput mode: track a batch of frames per dispatch.
+
+        Frames before initialisation go through batched two-view attempts
+        (``_init_consume``).  Then one dispatch extracts and tracks the rest;
+        the host walks the per-frame inlier counts, inserts a keyframe at
+        each frame whose policy fires (evaluated per frame, not at the batch
+        tail), and with ``retrack_after_kf`` re-tracks the frames after the
+        first keyframe against the updated map without re-extracting.
+        """
+        cfg = self.cfg
+        i = 0
+        while self.state == NOT_INITIALIZED and i < len(imgs):
+            i += self._init_consume(imgs[i:], frame_ids[i:])
+        if i >= len(imgs):
+            return self.trajectory[-1] if self.trajectory else None
+
+        B = len(imgs)
+        ids = list(frame_ids[i:])
+        n_real = len(ids)
+        prep = self._prep_batch(imgs[i:], B - n_real)
+        dev = self.device
+        pos = 0            # frames committed so far
+        feats_all = None   # the batch's features on the device
+        aux = None         # per-frame stereo rows (uvr, depth) or None
+        attempts = 0
+        while pos < n_real:
+            vel = self._velocity()
+            if feats_all is None:
+                with torch.profiler.record_function(TRACK_BATCH_RANGE):
+                    cm = torch.arange(B, device=dev) < n_real  # padding never counts
+                    Rs, ts, n_inls, feats_all, mp_feats, aux = self._batch_track(prep, vel, cm)
+                    n_np, Rs_np, ts_np, ref_now, cc_np = self._host_copy(
+                        Rs, ts, n_inls, mp_feats, aux)
+                offset, cur_feats, cur_aux = 0, feats_all, aux
+            else:
+                # roll so the next uncommitted frame leads; the wrapped tail is
+                # tracked but ignored, and only the uncommitted head counts
+                with torch.profiler.record_function(RETRACK_RANGE):
+                    cur_feats = O.FrameFeatures(*(torch.roll(f, -pos, dims=0) for f in feats_all))
+                    cur_aux = self._roll_aux(aux, pos)
+                    cm = torch.arange(B, device=dev) < (n_real - pos)
+                    Rs, ts, n_inls, mp_feats = self._batch_retrack(cur_feats, cur_aux, vel, cm)
+                    n_np, Rs_np, ts_np, ref_now, cc_np = self._host_copy(
+                        Rs, ts, n_inls, mp_feats, cur_aux)
+                offset = pos
+
+            # walk the frames; with retrack_after_kf the walk stops at the
+            # first keyframe and the rest re-track against the updated map
+            k_kf = None
+            for k in range(n_real - pos):
+                j = pos + k          # batch index of this frame
+                d = j - offset       # index into this dispatch's outputs
+                self._on_batch_frame(ids[j])
+                n = int(n_np[d])
+                ok = n >= cfg.min_tracked_points
+                self._update_lost_state(ok)
+                self.frames_since_kf += 1
+                self._record(ids[j], Rs_np[d], ts_np[d], n, ref_pose=ref_now)
+                if ok and d >= 1:
+                    Rv = Rs_np[d] @ Rs_np[d - 1].T
+                    self.vel = (Rv, ts_np[d] - Rv @ ts_np[d - 1])
+                need = ok and self._need_new_kf(
+                    n,
+                    tracked_close=int(cc_np[0][d]) if cc_np is not None else None,
+                    nontracked_close=int(cc_np[1][d]) if cc_np is not None else None,
+                )
+                if need:
+                    uvr_k, depth_k = self._kf_extras(cur_aux, d)
+                    self._insert_keyframe(_frame(cur_feats, d), ids[j], Rs_np[d], ts_np[d],
+                                          mp_feats[d], n, uvr=uvr_k, depth=depth_k)
+                    if cfg.retrack_after_kf and attempts < 3 and j + 1 < n_real:
+                        k_kf = j
+                        break
+            if k_kf is None:
+                pos = n_real
+            else:
+                pos = k_kf + 1
+                attempts += 1
+        return self.trajectory[-1]
+
+    def _init_consume(self, imgs, frame_ids):
+        """Batched initialisation attempts: one extraction for the remaining
+        frames and one two-view attempt per frame against the reference, all
+        in one batch; the host walks the outcomes in frame order with the
+        per-frame policy of ``_try_initialize``.  Returns the number of
+        frames consumed (>= 1)."""
+        with torch.profiler.record_function(INIT_RANGE):
+            return self._init_consume_timed(imgs, frame_ids)
+
+    def _init_consume_timed(self, imgs, frame_ids):
+        with torch.profiler.record_function(EXTRACTION_RANGE):
+            feats_all = self._extract(self._prep_batch(imgs, 0).to(torch.float32))
+        start = 0
+        if self.ref_feats is None:
+            self.ref_feats = _frame(feats_all, 0)
+            self.ref_frame_id = frame_ids[0]
+            self._record(frame_ids[0], np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0)
+            if len(imgs) == 1:
+                return 1
+            start = 1
+        cand = _frame(feats_all, slice(start, None))
+        seed = int(frame_ids[start])
+        n_m, succ, good, pts1, R21, t21, idx = T.init_attempt_batch(
+            self.ref_feats, cand, self.cam, lambda matched: self._minimal_sets(matched, seed))
+        n_m_np, succ_np, good_np, pts1_np, R21_np, t21_np = _pull(n_m, succ, good, pts1, R21, t21)
+        for j in range(len(frame_ids) - start):
+            fid = frame_ids[start + j]
+            if int(n_m_np[j]) < 100:
+                # matching too weak: this frame becomes the reference
+                self.ref_feats = _frame(cand, j)
+                self.ref_frame_id = fid
+                self._record(fid, self.last_Rcw, self.last_tcw, 0)
+                return start + j + 1
+            if bool(succ_np[j]):
+                self._finish_initialize(_frame(cand, j), fid, idx[j], good_np[j], pts1[j],
+                                        R21[j], t21[j], pts1_np[j], R21_np[j], t21_np[j])
+                return start + j + 1
+            self._record(fid, self.last_Rcw, self.last_tcw, 0)
+        return len(frame_ids)
 
     def _try_relocalize(self, feats, frame_id):
         """None while no relocalisation database exists (the only case the
@@ -254,6 +619,8 @@ class MonoSLAM:
         if slot is None:
             return  # at capacity with no culled slot to recycle
         self.kf_inserted += 1
+        Rcw, tcw = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                    for x in (Rcw, tcw))
         NF = cfg.n_features
         none = lambda: torch.full((NF,), -1.0, dtype=torch.float32, device=self.device)
         # bindings from a track call made before an earlier compaction still
@@ -269,13 +636,14 @@ class MonoSLAM:
             self._mp_remap = inv if self._mp_remap is None else (
                 MS.compose_point_remaps(self._mp_remap, inv)
             )
-        self.m, n_mp = T.insert_keyframe_step(
-            self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
-            uvr if uvr is not None else none(), depth if depth is not None else none(),
-            self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors,
-            bf=cfg.bf, has_depth=depth is not None,
-        )
-        self.n_mp = int(n_mp)
+        with torch.profiler.record_function(KEYFRAME_RANGE):
+            self.m, n_mp = T.insert_keyframe_step(
+                self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
+                uvr if uvr is not None else none(), depth if depth is not None else none(),
+                self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors,
+                bf=cfg.bf, has_depth=depth is not None,
+            )
+            self.n_mp = int(n_mp)
         self.kf_frame_ids[slot] = int(frame_id)
         self.last_kf_slot = slot
         self.frames_since_kf = 0
@@ -300,11 +668,7 @@ class MonoSLAM:
 
     def _track(self, feats, frame_id, uvr=None, depth=None):
         cfg = self.cfg
-        # constant-velocity motion model, else the last pose
-        if self.vel is not None:
-            Rp, tp = se3.compose(self.vel, (self.last_Rcw, self.last_tcw))
-        else:
-            Rp, tp = self.last_Rcw, self.last_tcw
+        Rp, tp = self._prediction()  # constant-velocity model, else the last pose
         mp_mask, _ = MS.local_map_mask(self.m, self.last_kf_slot, n_neighbors=cfg.local_window)
         Rcw, tcw, n_inl, mp_of_feat, vis, found = T.track_frame(
             self.m, feats, Rp, tp, mp_mask, self.cam, cfg, feat_uvr=uvr, bf=cfg.bf,
@@ -331,7 +695,7 @@ class MonoSLAM:
                 self.frames_since_kf += 1
                 return
         self._update_lost_state(True)
-        self.vel = se3.compose((Rcw, tcw), se3.inverse((self.last_Rcw, self.last_tcw)))
+        self.vel = se3.compose((Rcw, tcw), se3.inverse(self._last_pose()))
         self.frames_since_kf += 1
         ref_now = (
             self.last_kf_slot,
@@ -364,8 +728,9 @@ class MonoSLAM:
         else:
             rec = FrameRecord(frame_id, Rn, tn, self.state, n_inl)
         self.trajectory.append(rec)
-        self.last_Rcw = torch.as_tensor(Rcw, device=self.device)
-        self.last_tcw = torch.as_tensor(tcw, device=self.device)
+        # kept as given (device tensors, or a batch's host copies); turned
+        # into device tensors where the next prediction needs them
+        self.last_Rcw, self.last_tcw = Rcw, tcw
 
     def _add_candidates_init(self, m, out, accept):
         """Insert the initial map's candidate points (all bound to KF 0)."""
@@ -405,6 +770,43 @@ class StereoSLAM(MonoSLAM):
 
     MIN_INIT_POINTS = 300  # reference requires 500 stereo points at init
 
+    # batch-mode hooks: ``process_batch`` takes a list of (left, right) pairs;
+    # the 2B images are one extraction batch and the B pairs one K4 launch
+    def _process_one(self, frame, frame_id):
+        self.process(frame[0], frame[1], frame_id)
+
+    def _init_consume(self, imgs, frame_ids):
+        # stereo initialisation is single-frame (from depth)
+        self._process_one(imgs[0], frame_ids[0])
+        return 1
+
+    def _prep_batch(self, frames, n_pad):
+        """(2B, H, W) uint8 on the device: the B left images, then the B
+        right ones; host frames go over in one copy."""
+        frames = list(frames) + [frames[-1]] * n_pad
+        if isinstance(frames[0][0], torch.Tensor):
+            both = torch.stack([f[0] for f in frames] + [f[1] for f in frames])
+            return both.to(self.device, torch.uint8)
+        return torch.from_numpy(np.stack(
+            [np.asarray(f[0]).astype(np.uint8) for f in frames]
+            + [np.asarray(f[1]).astype(np.uint8) for f in frames])).to(self.device)
+
+    def _batch_track(self, prep, vel, cm):
+        Rl, tl = self._last_pose()
+        self.m, Rs, ts, n_inls, feats_all, mp_feats, uvr, depth = T.stereo_track_batch(
+            self.m, prep, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg,
+            bf=self.cfg.bf, count_mask=cm,
+        )
+        return Rs, ts, n_inls, feats_all, mp_feats, (uvr, depth)
+
+    def _batch_retrack(self, rolled, aux_rolled, vel, cm):
+        Rl, tl = self._last_pose()
+        self.m, Rs, ts, n_inls, _, mp_feats = T.track_batch_feats(
+            self.m, rolled, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg,
+            bf=self.cfg.bf, count_mask=cm, uvr_all=aux_rolled[0],
+        )
+        return Rs, ts, n_inls, mp_feats
+
     def process(self, img_left, img_right, frame_id: int):
         """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
         cfg = self.cfg
@@ -412,9 +814,12 @@ class StereoSLAM(MonoSLAM):
         # extraction (K1, K2 and K3 once each) and matching (K4 on the two
         # images' atlases, views of the pair's)
         with torch.profiler.record_function(EXTRACTION_RANGE):
-            pair = np.stack([np.asarray(img_left), np.asarray(img_right)])
-            pyr, atlas = self._pyramid_atlas(
-                torch.as_tensor(pair, dtype=torch.float32).to(self.device))
+            if isinstance(img_left, torch.Tensor):
+                pair = torch.stack([img_left, img_right]).to(self.device, torch.float32)
+            else:
+                pair = torch.as_tensor(np.stack([np.asarray(img_left), np.asarray(img_right)]),
+                                       dtype=torch.float32).to(self.device)
+            pyr, atlas = self._pyramid_atlas(pair)
             both = O.extract_from_atlas(atlas, **self._orb_args())
             feats, feats_r = (O.FrameFeatures(*(f[i] for f in both)) for i in range(2))
         with torch.profiler.record_function(STEREO_RANGE):
@@ -468,6 +873,12 @@ class RGBDSLAM(StereoSLAM):
     ``u_r = u - bf / depth`` (``Frame::ComputeStereoFromRGBD``), and the
     stereo machinery does the rest.
     """
+
+    def process_batch(self, imgs, frame_ids):
+        raise NotImplementedError(
+            "RGB-D batch mode is not ported: the reference's RGBDSLAM inherits the stereo "
+            "batch hooks, which would read the depth map as a right image (ROADMAP.md, Queue 3)"
+        )
 
     def process(self, img, depth_img, frame_id: int):
         cfg = self.cfg

@@ -7,6 +7,16 @@ pose optimisation, and the wide-window retry when too few inliers survive.
 The retry is a host branch on the inlier count (one sync per frame) where
 the JAX package uses ``lax.cond``.
 
+Monocular initialisation (:func:`init_attempt_batch`): one reference frame
+against a batch of candidate frames, batched Hamming matching and two-view
+RANSAC (:mod:`..geometry.twoview`).  Batch (throughput) mode
+(:func:`track_batch`, :func:`stereo_track_batch`): extraction once for the
+whole batch (the stereo pairs as one batch of 2B images, then
+:func:`..ops.stereo.match_stereo` over the B pairs), then the frames one
+after another with the constant-velocity model carried on the device
+(:func:`track_batch_feats`, the ``lax.scan`` of the JAX package as a
+Python loop with no host read of its own).
+
 Mapping (``LocalMapping::Run``), one call per keyframe
 (:func:`insert_keyframe_step`): depth-seeded points, epipolar-gated
 triangulation against the top covisible keyframes
@@ -23,13 +33,16 @@ import math
 
 import torch
 
-from orb_slam3_noted_tpu_torch.geometry import so3
+from orb_slam3_noted_tpu_torch.geometry import se3, so3
+from orb_slam3_noted_tpu_torch.geometry import twoview as TV
 from orb_slam3_noted_tpu_torch.geometry.triangulation import triangulate_dlt
 from orb_slam3_noted_tpu_torch.io.config import SlamConfig
 from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
 from orb_slam3_noted_tpu_torch.ops import matching as M
+from orb_slam3_noted_tpu_torch.ops import image as image_ops
 from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
+from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.optim.pose_opt import PoseObs, pose_optimization
 from orb_slam3_noted_tpu_torch.optim.window_ba import WindowObs, window_bundle_adjust
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
@@ -608,3 +621,135 @@ def track_step(
         mp_found=m.mp_found + found.to(torch.int32),
     )
     return m, feats, Rcw, tcw, n_inl, mp_of_feat
+
+
+# ---------------------------------------------------------------------------
+# monocular initialisation
+# ---------------------------------------------------------------------------
+
+N_HYP = 256  # RANSAC hypotheses per model and attempt
+
+
+def init_attempt_batch(ref: O.FrameFeatures, feats_all: O.FrameFeatures, cam: cam_mod.Camera,
+                       draw):
+    """Two-view initialisation attempts of one reference frame against a
+    batch of B candidate frames (``Tracking::MonocularInitialization``):
+    batched Hamming matching (mutual, ratio 0.9, rotation-consistent), then
+    :func:`..geometry.twoview.reconstruct_two_views` over all B pairs.
+
+    ``draw`` maps the (B, N) match mask to the RANSAC minimal sets, (B,
+    n_hyp, 8) indices (for instance :func:`..geometry.twoview.
+    sample_minimal_sets` with :data:`N_HYP` and a generator).  The
+    reconstruction runs for every candidate, however few its matches; the
+    caller gates on ``n_matches``.  Returns (n_matches (B,), success (B,),
+    good (B, N), points1 (B, N, 3), R21 (B, 3, 3), t21 (B, 3), idx (B, N)).
+    """
+    d = M.hamming_matrix(ref.desc, feats_all.desc)                       # (B, N, N)
+    B = d.shape[0]
+    mm = M.match_nn(
+        d, ref.valid.expand(B, -1), feats_all.valid, max_dist=M.TH_LOW, ratio=0.9,
+        mutual=True, ang_a=ref.angle.expand(B, -1), ang_b=feats_all.angle,
+    )
+    idx = mm.idx
+    matched = idx >= 0
+    rays1 = cam_mod.unproject(cam, ref.xy).expand(B, -1, -1)
+    xy2 = torch.gather(feats_all.xy, 1, idx.clamp(min=0).long()[..., None].expand(-1, -1, 2))
+    rays2 = cam_mod.unproject(cam, xy2)
+    res = TV.reconstruct_two_views(rays1, rays2, matched, draw(matched),
+                                   err_thresh=3.84 / (cam.fx * cam.fx))
+    return (torch.sum(matched, dim=-1), res.success, res.is_inlier, res.points1, res.R21,
+            res.t21, idx)
+
+
+# ---------------------------------------------------------------------------
+# batch (throughput) mode
+# ---------------------------------------------------------------------------
+
+def track_batch_feats(m, feats_all, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf=0.0,
+                      count_mask=None, uvr_all=None):
+    """Track the B already-extracted frames of ``feats_all`` one after
+    another against the same map (the JAX package's ``lax.scan``; also the
+    re-track after a keyframe inserted mid-batch): each frame's prediction
+    is the constant-velocity model applied to the previous output, and a
+    frame below ``min_tracked_points`` keeps the prediction and the old
+    velocity (``torch.where``; nothing is read back here beyond what
+    :func:`track_frame` reads).  ``count_mask`` (B,) keeps padding and
+    already-committed frames out of the visible/found counters; ``uvr_all``
+    (B, NF) gives stereo frames their 3-row observations.  Returns (m, Rcw
+    (B, 3, 3), tcw (B, 3), n_inl (B,), feats_all, mp_of_feat (B, NF))."""
+    mp_mask, _ = MS.local_map_mask(m, last_kf_slot, n_neighbors=cfg.local_window)
+    B = feats_all.xy.shape[0]
+    if count_mask is None:
+        count_mask = torch.ones(B, dtype=torch.bool, device=feats_all.xy.device)
+    Rprev, tprev = Rcw0, tcw0
+    Rv, tv = vel0
+    vis_c = torch.zeros_like(m.mp_visible)
+    found_c = torch.zeros_like(m.mp_found)
+    outs = []
+    for b in range(B):
+        Rp, tp = se3.compose((Rv, tv), (Rprev, tprev))
+        Rcw, tcw, n_inl, mp_of_feat, vis, found = track_frame(
+            m, O.FrameFeatures(*(f[b] for f in feats_all)), Rp, tp, mp_mask, cam, cfg,
+            feat_uvr=None if uvr_all is None else uvr_all[b], bf=bf,
+        )
+        ok = n_inl >= cfg.min_tracked_points
+        # the velocity moves only when tracking succeeded
+        Rv_new, tv_new = se3.compose((Rcw, tcw), se3.inverse((Rprev, tprev)))
+        Rv, tv = torch.where(ok, Rv_new, Rv), torch.where(ok, tv_new, tv)
+        Rprev, tprev = torch.where(ok, Rcw, Rp), torch.where(ok, tcw, tp)
+        vis_c = vis_c + (vis & count_mask[b]).to(torch.int32)
+        found_c = found_c + (found & count_mask[b]).to(torch.int32)
+        outs.append((Rprev, tprev, n_inl, mp_of_feat))
+    Rs, ts, n_inls, mp_feats = (torch.stack(x) for x in zip(*outs))
+    m = m._replace(mp_visible=m.mp_visible + vis_c, mp_found=m.mp_found + found_c)
+    return m, Rs, ts, n_inls, feats_all, mp_feats
+
+
+def _orb_kw(cfg: SlamConfig) -> dict:
+    return dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+                th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast)
+
+
+def track_batch(m, imgs_u8, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf=0.0, count_mask=None):
+    """Track a (B, H, W) uint8 batch: extraction once for the batch (K1, K2
+    and K3 one launch each), then :func:`track_batch_feats`.  ``vel0``: (R,
+    t) relative motion, identity when none.  Returns (m, Rcw (B, 3, 3), tcw
+    (B, 3), n_inl (B,), feats of all frames (leading B), mp_of_feat (B, NF))."""
+    feats_all = O.extract_orb_batch(imgs_u8.to(torch.float32), **_orb_kw(cfg))
+    return track_batch_feats(m, feats_all, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf,
+                             count_mask)
+
+
+def stereo_frontend_batch(imgs_u8, cam, cfg, bf):
+    """Batched extraction of B rectified pairs and their stereo matching.
+    ``imgs_u8`` (2B, H, W): the B left images, then the B right ones, one
+    atlas batch (K1, K2 and K3 once each); then
+    :func:`..ops.stereo.match_stereo` over the B pairs (K4 once).  Returns
+    (featsL (leading B), uvr (B, NF), depth (B, NF))."""
+    B = imgs_u8.shape[0] // 2
+    pyr = tuple(image_ops.build_pyramid(imgs_u8.to(torch.float32), cfg.n_levels,
+                                        cfg.scale_factor))
+    atlas = image_ops.build_atlas(pyr)
+    feats2 = O.extract_from_atlas(atlas, **_orb_kw(cfg))
+    featsL = O.FrameFeatures(*(f[:B] for f in feats2))
+    featsR = O.FrameFeatures(*(f[B:] for f in feats2))
+    sm = match_stereo(
+        featsL, featsR, tuple(p[:B] for p in pyr), tuple(p[B:] for p in pyr),
+        bf=bf, baseline=bf / cam.fx, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+        atlases=(atlas._replace(image=atlas.image[:B]), atlas._replace(image=atlas.image[B:])),
+    )
+    return (featsL, torch.where(sm.valid, sm.u_right, -1.0),
+            torch.where(sm.valid, sm.depth, -1.0))
+
+
+def stereo_track_batch(m, imgs_u8, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf,
+                       count_mask=None):
+    """Stereo batch mode: B rectified pairs, (2B, H, W) as
+    :func:`stereo_frontend_batch` takes them, through the batched front
+    end, then :func:`track_batch_feats` with 3-row stereo observations.
+    Returns (m, Rs, ts, n_inls, featsL (leading B), mp_feats (B, NF), uvr
+    (B, NF), depth (B, NF))."""
+    featsL, uvr, depth = stereo_frontend_batch(imgs_u8, cam, cfg, bf)
+    m, Rs, ts, n_inls, feats_out, mp_feats = track_batch_feats(
+        m, featsL, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf, count_mask, uvr_all=uvr)
+    return m, Rs, ts, n_inls, feats_out, mp_feats, uvr, depth

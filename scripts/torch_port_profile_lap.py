@@ -1,7 +1,7 @@
 """Where the time of the port's smoke laps goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd] [--runs 2] [--out-dir DIR]
-                                              [--tree DIR]
+    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono] [--runs 2]
+                                              [--out-dir DIR] [--tree DIR]
 
 Drives the lap of ``chip_smoke.py`` (same configuration, same rendered
 frames) through the port on ``cuda``:
@@ -24,6 +24,17 @@ frames) through the port on ``cuda``:
    ``fast_select``, ``ic_angle``, ``describe``), and the hand-written
    kernels' own device time is listed by name;
 3. peak device memory of the whole process.
+
+``--mode mono`` drives ``chip_smoke.py``'s mono lap instead (``bench.py``'s
+monocular configuration, 120 frames staged on the card,
+``MonoSLAM.process_batch`` in batches of 16 from frame 0): ``--runs`` plain
+laps (frames/s, tracked frames, Sim(3) ATE, keyframes), then one more lap
+with ``torch.profiler`` over its first ``--profile-batches`` batches (default
+2: the initialisation, the first tracking batch and the first keyframes;
+a whole lap is millions of events), with kernel launches, host-to-device
+copies and host ms split across the facade's stages (``initialize``,
+``track_batch``, ``track_batch_feats``, ``insert_keyframe``, the rest), per
+profiled window and per frame.
 
 Prints one JSON object last, and the card's name and power limit before it;
 writes the operations by device time to ``<out-dir>/profile_<mode>_<from>.txt``
@@ -120,11 +131,120 @@ def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
     return out
 
 
+def profile_summary(prof, n_frames: int, wall_ms: float, skip: tuple) -> dict:
+    """Device-busy ms, launches, kernels, idle share and the ten operations
+    with the most device time, per frame, from a profile of ``n_frames``
+    frames that took ``wall_ms`` unprofiled; ``skip``: the facade's ranges
+    (the profiler mirrors them onto the device timeline)."""
+    from torch.autograd import DeviceType
+
+    keys = prof.key_averages()
+    dev_us = lambda k: k.self_device_time_total
+    on_device = [k for k in keys if k.device_type == DeviceType.CUDA and k.key not in skip]
+    on_host = [k for k in keys if k.device_type != DeviceType.CUDA and k.key not in skip]
+    busy_ms = sum(dev_us(k) for k in on_device) / 1e3
+    return {
+        "device_busy_ms_per_frame": busy_ms / n_frames,
+        "kernel_launches_per_frame": sum(
+            k.count for k in on_host if k.key.startswith("cudaLaunchKernel")) / n_frames,
+        "device_kernels_per_frame": sum(k.count for k in on_device) / n_frames,
+        "h2d_copies_per_frame": sum(
+            k.count for k in on_device if k.key.startswith("Memcpy HtoD")) / n_frames,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "top_device_ops": [[k.key[:60], dev_us(k) / 1e3 / n_frames]
+                           for k in sorted(on_host, key=dev_us, reverse=True)[:10]],
+    }
+
+
+def main_mono(args, cs, system) -> int:
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops.cuda_kernels import KERNELS, build_library
+    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    build_library()  # nvcc before the timed laps, not inside the first one
+    poses, imgs = cs.mono_inputs()
+    n = len(imgs)
+    staged = torch.from_numpy(imgs).to(dev)
+    frames = [staged[i] for i in range(n)]
+    gt = np.asarray([t for _, t in poses])
+
+    def lap(prof=None, window=0):
+        """One lap; with ``prof``, profiled over its first ``window`` frames
+        (returns their wall seconds too)."""
+        slam = MonoSLAM(cs.mono_config(), device=dev)
+        if prof is None:
+            return slam, cs.drive_batches(slam, frames, list(range(n)), False), None
+        prof.__enter__()
+        wall_p = cs.drive_batches(slam, frames[:window], list(range(window)), False)
+        prof.__exit__(None, None, None)
+        wall = wall_p + cs.drive_batches(slam, frames[window:], list(range(window, n)), False)
+        return slam, wall, wall_p
+
+    laps = []
+    for run in range(args.runs):
+        slam, wall, _ = lap()
+        states = [r.state for r in slam.trajectory]
+        kf = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
+        init = states.index("OK")
+        use = [kf[0]] + list(range(init, n))
+        laps.append({"fps": n / wall, "wall_s": wall, "tracked": states.count("OK"),
+                     "init_frame": init, "ate_m": ate_rmse(slam.positions()[use], gt[use])[0],
+                     "n_kf": slam.n_kf, "kf_frames": kf, "n_mp": slam.n_mp})
+        print(f"[lap {run}] {laps[-1]}", flush=True)
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    window = args.profile_batches * cs.BATCH
+    slam, _, wall_p = lap(prof, window)
+    stages = system.STAGES
+    inner = (system.EXTRACTION_RANGE, *system.EXTRACTION_PARTS)
+    by_stage = split_by_range(prof, stages, window)
+    # the rest's host time: the profiled window less the stages
+    by_stage["rest"]["host_ms"] = wall_p * 1e3 / window - sum(
+        r["host_ms"] for k, r in by_stage.items() if k != "rest")
+    # the idle share against the same frames unprofiled (the plain laps'
+    # share of their wall, by frames: the window holds the initialisation)
+    plain_ms = float(np.mean([l["wall_s"] for l in laps])) * 1e3 * window / n
+    summary = profile_summary(prof, window, plain_ms, stages + inner)
+    names = "|".join(fn.__name__ + "_kernel" for fn in KERNELS)
+    from torch.autograd import DeviceType
+
+    hand = {}
+    for k in prof.key_averages():
+        m = re.search(names, k.key) if k.device_type == DeviceType.CUDA else None
+        if m:
+            hand[m.group(0)] = [k.count, k.self_device_time_total / 1e3]
+    out = {
+        "mode": "mono", "card": smi, "laps": laps, "frames": n, "batch": cs.BATCH,
+        "profile": {
+            "frames": [0, window], "profiled_wall_s": wall_p,
+            **summary,
+            "per_frame_by_stage": by_stage,
+            "per_window_by_stage": {k: {f: (v * window if isinstance(v, float) else v)
+                                        for f, v in r.items() if f != "h2d_from"}
+                                    for k, r in by_stage.items()},
+            "hand_kernels_launches_and_device_ms_per_window": hand,
+        },
+        "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+    }
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "profile_mono.txt"), "w") as f:
+        f.write(f"{smi}\nper frame by stage: {json.dumps(by_stage)}\n")
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stereo", "rgbd"), default="stereo")
+    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono"), default="stereo")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--profile-from", type=int, default=16)
+    ap.add_argument("--profile-batches", type=int, default=2, help="mono: batches profiled")
     ap.add_argument("--out-dir", default=os.path.join(ROOT, "build", "profile"))
     ap.add_argument("--tree", default=None, help="checkout whose port is profiled (default: this one)")
     args = ap.parse_args()
@@ -137,6 +257,8 @@ def main() -> int:
     from orb_slam3_noted_tpu_torch.ops.cuda_kernels import KERNELS
     from orb_slam3_noted_tpu_torch.pipeline import system
 
+    if args.mode == "mono":
+        return main_mono(args, cs, system)
     dev = torch.device("cuda")
     smi = cs.nvidia_smi()
     cfg = cs.lap_config()

@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K4 against their plain PyTorch versions, on the card, and
+the batched front end and two-view solver that drive them.
 
 Marked ``cuda``: every test here skips where ``torch.cuda.is_available()``
 is false (decided inside the fixture, so every worker collects the same
@@ -437,3 +438,77 @@ def test_wrappers_reject_bad_input(dev):
         ck.sad_stereo(args[0], args[1][:-1], *args[2:])
     with pytest.raises(ValueError):  # an atlas on another device
         ck.sad_stereo(args[0], args[1].cpu(), *args[2:])
+
+
+def _rendered_pairs(n):
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory, stereo_pair
+
+    params, base = (458.654, 457.296, 367.215, 248.375), 0.11
+    room = BoxRoom(seed=0)
+    pairs = [stereo_pair(room, R, t, params, 752, 480, base)[:2]
+             for R, t in orbit_trajectory(48, forward=0.03, yaw0=0.45)[:n]]
+    return [(a.astype(np.uint8), b.astype(np.uint8)) for a, b in pairs], params, base
+
+
+def test_stereo_front_end_batch_is_one_launch_each(dev):
+    """B pairs through the batched front end: K1, K2 and K3 once over the 2B
+    images, K4 once over the B pairs; each pair gets the features it gets
+    alone on the card, and its stereo rows to the limits of
+    ``test_match_stereo_on_card_matches_cpu`` (the pyramid's resize products
+    of 2B images and of 2 need not round alike on the card, and the SAD
+    sums follow their last bits)."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.ops import stereo as S
+    from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+
+    pairs, params, base = _rendered_pairs(4)
+    cfg = SlamConfig(camera=Camera(PINHOLE, params), bf=base * params[0])
+    L = torch.from_numpy(np.stack([p[0] for p in pairs])).to(dev)
+    R = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
+    ck.reset_launch_counts()
+    feats, uvr, depth = T.stereo_frontend_batch(torch.cat([L, R]), cfg.camera, cfg, cfg.bf)
+    assert ck.launch_counts() == {"fast_candidates": 1, "gaussian_blur7": 1, "brief_sample": 1,
+                                  "sad_stereo": 1, "fast_score": 0}
+    for b in range(4):
+        pyr = tuple(image_ops.build_pyramid(torch.stack([L[b], R[b]]).to(torch.float32)))
+        both = O.extract_from_pyramid(pyr)
+        fl, fr = (O.FrameFeatures(*(f[i] for f in both)) for i in range(2))
+        sm = S.match_stereo(fl, fr, tuple(p[0] for p in pyr), tuple(p[1] for p in pyr),
+                            bf=cfg.bf, baseline=base)
+        assert torch.equal(fl.desc, feats.desc[b]) and torch.equal(fl.xy, feats.xy[b])
+        valid = uvr[b] >= 0
+        assert (valid == sm.valid).float().mean() >= 0.99 and int(sm.valid.sum()) > 600
+        both = valid & sm.valid
+        assert float((uvr[b][both] - sm.u_right[both]).abs().max()) <= 1e-3
+
+
+def test_two_view_reconstruction_on_card_matches_cpu(dev):
+    """The two-view solver with the same minimal sets on the card (cuSOLVER
+    eigenproblems and SVDs, whose vector signs may differ) and on the CPU."""
+    from orb_slam3_noted_tpu_torch.geometry import twoview as TV
+
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2, 2, size=(3, 400, 3)) + np.array([0, 0, 5.0])
+    c, s = np.cos(0.08), np.sin(0.08)
+    R21 = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    p2 = pts @ R21.T + np.array([-0.35, 0.04, 0.06])
+    r1 = pts / pts[..., 2:3]
+    r2 = p2 / p2[..., 2:3]
+    r2[..., :2] += rng.normal(0, 5e-4, size=r2[..., :2].shape)
+    r1, r2 = (torch.from_numpy(x.astype(np.float32)) for x in (r1, r2))
+    valid = torch.ones(3, 400, dtype=torch.bool)
+    valid[1, 50:] = False
+    sets = TV.sample_minimal_sets(valid, 256, torch.Generator().manual_seed(0))
+    cpu = TV.reconstruct_two_views(r1, r2, valid, sets)
+    card = TV.reconstruct_two_views(r1.to(dev), r2.to(dev), valid.to(dev), sets.to(dev))
+    assert torch.equal(card.success.cpu(), cpu.success) and bool(cpu.success[0])
+    torch.testing.assert_close(card.R21.cpu(), cpu.R21, atol=1e-4, rtol=0)
+    torch.testing.assert_close(card.t21.cpu(), cpu.t21, atol=1e-4, rtol=0)
+    assert (card.is_inlier.cpu() == cpu.is_inlier).float().mean() >= 0.99
+    # the draw itself on the card's generator: 8 distinct valid entries each
+    g = torch.Generator(device=dev).manual_seed(1)
+    idx = TV.sample_minimal_sets(valid.to(dev), 256, g)
+    assert idx.device.type == "cuda" and idx.shape == (3, 256, 8)
+    assert bool(torch.gather(valid.to(dev), 1, idx.reshape(3, -1)).all())
+    assert bool((idx.sort(dim=-1).values.diff(dim=-1) > 0).all())

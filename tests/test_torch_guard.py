@@ -57,10 +57,13 @@ def _sources(*parts):
 
 
 def test_port_names_neither_jax_nor_the_jax_package():
-    """Every module of the port and ``chip_smoke.py``, by their import
-    statements (the stereo matcher, the mapper and the windowed BA included)."""
-    files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py")]
-    assert {"stereo.py", "triangulation.py", "window_ba.py"} <= {os.path.basename(f) for f in files}
+    """Every module of the port, ``chip_smoke.py`` and the port's bench and
+    profile scripts, by their import statements (the stereo matcher, the
+    mapper, the windowed BA and the two-view solver included)."""
+    files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", n) for n in ("torch_port_bench.py", "torch_port_profile_lap.py")]
+    assert {"stereo.py", "triangulation.py", "window_ba.py", "twoview.py", "horn.py",
+            "evaluation.py", "trajectory.py"} <= {os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -78,13 +81,16 @@ def test_port_names_neither_jax_nor_the_jax_package():
 def test_port_never_asks_for_a_gpu_or_catches_a_launch():
     """Dispatch is by the tensor's device alone: no module of the port asks
     ``is_available``, and no module under ``ops/`` (the kernel wrappers and
-    their callers) holds a ``try`` that could fall back from a failed build
-    or launch to the plain version."""
+    their callers), ``geometry/`` or ``pipeline/`` (the two-view solver and
+    the facades that drive the kernels) holds a ``try`` that could fall back
+    from a failed build or launch to the plain version."""
     for path in _sources("**", "*.py"):
         with open(path) as f:
             src = f.read()
         assert "is_available" not in src, path
-    for path in _sources("ops", "*.py"):
+    paths = _sources("ops", "*.py") + _sources("geometry", "*.py") + _sources("pipeline", "*.py")
+    assert {"twoview.py", "system.py", "tracking.py"} <= {os.path.basename(p) for p in paths}
+    for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path

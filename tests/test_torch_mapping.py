@@ -615,5 +615,7 @@ def test_unported_entry_points_name_their_step():
     with pytest.raises(NotImplementedError, match="next steps 2"):
         StereoSLAM(tcfg(enable_loop_closing=True), device=CPU)
     ts = StereoSLAM(tcfg(), device=CPU)
-    with pytest.raises(NotImplementedError, match="next steps 1"):
-        ts.process_batch([], [])
+    assert ts.process_batch([], []) is None  # batch mode is ported (step 1)
+    ts.reloc_db = object()
+    with pytest.raises(NotImplementedError, match="next steps 2"):
+        ts._try_relocalize(None, 0)
