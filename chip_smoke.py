@@ -28,7 +28,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
    operations it must do, and stands beside ``launch_floor_ms``, the device
    time of an empty kernel timed the same way (the least any launch lasts);
 4. the RGB-D lap: ``RGBDSLAM`` in localisation mode on ``cuda`` over 48
-   frames of the stereo bench configuration, launch counts per frame 1 for
+   frames of the stereo bench configuration (every lap renders its frames
+   from the JAX run's camera rotations, stored in its fixture), launch
+   counts per frame 1 for
    K1, K2 and K3, 0 for K4, tracked frames and metric RMSE against
    ground truth
    within the thresholds derived from the JAX package's run of the same lap
@@ -58,8 +60,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
    initialised, then ``process_batch`` in batches of 16, against
    ``tests/fixtures/stereo_batch_lap.json``; K4 once per batch plus once
    per frame-by-frame frame, frames/s;
+9. the kidnapped monocular lap (``bench.py``'s monocular configuration,
+   ``MonoSLAM.process`` frame by frame, loop closing off): frames 0-35 of
+   the mono lap's trajectory, three blank frames, then frames 20-59 with the
+   camera rolled 90 deg about its optical axis, on the JAX run's two-view
+   and PnP draws, against ``tests/fixtures/mono_reloc_lap.json``: each
+   relocalisation at most a frame after the JAX run's, to the same
+   candidate keyframe, PnP inliers at least half the JAX run's, as many
+   relocalisations,
+   tracked frames, Sim(3) ATE over the frames that are not blank and
+   keyframes as on the mono lap, the relocalisation database built with
+   one BoW row per keyframe the mapper inserted, ``final_poses()`` one
+   finite pose a frame, K1, K2 and K3 once a frame (blank frames included)
+   and K4 never; ms per relocalisation attempt, one keyframe's BoW
+   transform (device and per-call ms beside its bound) and frames/s;
 
-after each of the laps 4, 5, 7 and 8, every kernel against its plain
+after each of the laps 4, 5, 7, 8 and 9, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -84,6 +100,7 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "rgbd_localization_lap.json")
 STEREO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_slam_lap.json")
 MONO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mono_slam_lap.json")
 STEREO_BATCH_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_batch_lap.json")
+RELOC_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mono_reloc_lap.json")
 
 W, H = 752, 480
 CAM_PARAMS = (458.654, 457.296, 367.215, 248.375)
@@ -105,6 +122,17 @@ MONO_FRAMES = 120
 # mono lap against the JAX run: initialised no later than 4 frames after it,
 # tracked >= JAX - 3, Sim(3)-aligned ATE <= 2 x JAX + 2 mm, keyframes +-2
 MONO_INIT_MARGIN, MONO_TRACKED_MARGIN, MONO_KF_MARGIN = 4, 3, 2
+# kidnapped lap against the JAX run: each relocalisation at most one frame
+# after the JAX run's, to the same candidate keyframe, with at least half
+# its PnP inliers: the best of 128 six-point DLTs swings with how many sets
+# span two walls of the room (the port drew 206 against JAX's 311 on the
+# CPU, scripts/torch_port_reloc_probe.py, and 421 on an H100),
+# and the JAX package's DLT loses about half its hypotheses to the SVD's
+# null-vector sign, the port's none (tests/test_torch_pnp.py); as many
+# relocalisations; tracked, ATE and keyframes as the mono lap (ATE over
+# every frame that is not blank)
+RELOC_FRAMES = 79
+RELOC_FRAME_MARGIN, RELOC_PNP_SHARE = 1, 0.5
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here is float32 or integer arithmetic)
@@ -232,32 +260,46 @@ def mono_config():
     )
 
 
-def mono_inputs():
-    """(poses, (n, H, W) uint8 images) of ``bench.py``'s monocular lap,
-    rendered from the camera rotations the JAX run's frames were rendered
-    from (``rwc_f32`` of the mono fixture; the port's ``orbit_trajectory``
-    rounds a few of them 1 ulp otherwise, which moves edge pixels)."""
+def stored_poses(path: str, n_frames: int) -> list:
+    """The ``n_frames`` poses of ``orbit_trajectory(n_frames, forward=0.03,
+    yaw0=0.45)`` with the camera rotations the JAX run's frames were rendered
+    from (``rwc_f32`` of the fixture at ``path``): the port's trajectory
+    rounds a few of them 1 ulp away from the JAX package's ``so3.exp``, which
+    moves edge pixels of a render."""
     import base64
 
-    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory
+    from orb_slam3_noted_tpu_torch.utils.synthetic import orbit_trajectory
 
-    ref = load_fixture(MONO_FIXTURE, MONO_FRAMES)
-    rwc = np.frombuffer(base64.b64decode(ref["rwc_f32"]), "<f4").reshape(MONO_FRAMES, 3, 3)
-    ours = orbit_trajectory(MONO_FRAMES, forward=0.03, yaw0=0.45)
+    ref = load_fixture(path, n_frames)
+    rwc = np.frombuffer(base64.b64decode(ref["rwc_f32"]), "<f4").reshape(n_frames, 3, 3)
+    ours = orbit_trajectory(n_frames, forward=0.03, yaw0=0.45)
     if max(float(np.abs(R - Rf).max()) for (R, _), Rf in zip(ours, rwc)) > 1e-6:
-        raise AssertionError(f"{MONO_FIXTURE}: the rotations are not this lap's")
-    poses = [(Rf.copy(), t) for (_, t), Rf in zip(ours, rwc)]
+        raise AssertionError(f"{path}: the rotations are not this lap's")
+    return [(Rf.copy(), t) for (_, t), Rf in zip(ours, rwc)]
+
+
+def mono_inputs():
+    """(poses, (n, H, W) uint8 images) of ``bench.py``'s monocular lap,
+    rendered from the JAX run's camera rotations."""
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom
+
+    poses = stored_poses(MONO_FIXTURE, MONO_FRAMES)
     room = BoxRoom(seed=0)
     return poses, np.stack([room.render(R, t, CAM_PARAMS, W, H) for R, t in poses]).astype(np.uint8)
 
 
 def lap_inputs(n_frames: int):
     """(poses, [(left uint8, right uint8, left depth float32)]): the RGB-D
-    lap takes left and depth, the stereo lap left and right."""
-    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory, stereo_pair
+    lap takes left and depth, the stereo lap left and right; rendered from
+    the JAX run's camera rotations, which the three fixtures store alike."""
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, stereo_pair
 
+    poses = stored_poses(FIXTURE, n_frames)
+    for path in (STEREO_FIXTURE, STEREO_BATCH_FIXTURE):
+        if any(not np.array_equal(R, Rf) for (R, _), (Rf, _) in
+               zip(poses, stored_poses(path, n_frames))):
+            raise AssertionError(f"{path}: other rotations than {FIXTURE}'s")
     room = BoxRoom(seed=0)
-    poses = orbit_trajectory(n_frames, forward=0.03, yaw0=0.45)
     frames = []
     for Rwc, twc in poses:
         left, right, depth = stereo_pair(room, Rwc, twc, CAM_PARAMS, W, H, BASELINE)
@@ -958,11 +1000,12 @@ def match_mask_agreement(ref: dict, asked) -> tuple[int, int, int, int]:
     same = rows = diff = entries = 0
     for seed, valid in asked:
         d = by_seed[seed]
-        packed = np.frombuffer(base64.b64decode(d["matched"]), np.uint8).reshape(d["shape"][0], -1)
+        packed = np.frombuffer(base64.b64decode(d["matched"]), np.uint8).reshape(
+            *d["shape"][:-2], -1)
         jax_mask = np.unpackbits(packed, axis=-1, count=d["n"]).astype(bool)
         port = valid.cpu().numpy()
         same += int((port == jax_mask).all(axis=-1).sum())
-        rows += port.shape[0]
+        rows += int(np.prod(port.shape[:-1]))
         diff += int((port != jax_mask).sum())
         entries += port.size
     return same, rows, diff, entries
@@ -1034,6 +1077,294 @@ def run_mono_lap(poses, imgs, ref, dev, smi) -> tuple[dict, float]:
     return launches, fps
 
 
+def reloc_inputs(ref: dict):
+    """(ground-truth camera centres, [(frame id, (H, W) uint8 image or the
+    blank frame)]) of the kidnapped lap: the mono lap's trajectory, rendered
+    from the rotations the JAX run rendered (the revisit rolled 90 deg),
+    which the fixture stores per frame."""
+    import base64
+
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory
+
+    n = ref["frames"]
+    rwc = np.frombuffer(base64.b64decode(ref["rwc_f32"]), "<f4").reshape(n, 3, 3)
+    traj = orbit_trajectory(ref["trajectory_frames"], forward=0.03, yaw0=0.45)
+    room = BoxRoom(seed=0)
+    centres, frames = [], []
+    for fid, k, R in zip(ref["frame_ids"], ref["pose_index"], rwc):
+        if k is None:
+            centres.append(np.full(3, np.nan))
+            frames.append((fid, np.full((H, W), 128, np.uint8)))
+        else:
+            centres.append(traj[k][1])
+            frames.append((fid, room.render(R.copy(), traj[k][1], CAM_PARAMS, W, H).astype(np.uint8)))
+    return np.asarray(centres), frames
+
+
+def jax_pnp_mask(a: dict) -> np.ndarray:
+    """The match mask of one of the fixture's PnP attempts."""
+    import base64
+
+    return np.unpackbits(np.frombuffer(base64.b64decode(a["valid"]), np.uint8),
+                         count=a["n"]).astype(bool)
+
+
+def fixture_pnp_draws(ref: dict, slam):
+    """A stand-in for ``MonoSLAM._pnp_sets`` that returns the JAX run's PnP
+    minimal sets for the same frame and candidate (``pnp_attempts`` of the
+    fixture; the candidate is read from ``tracking.reloc_matches``, which
+    runs just before) where the port's match mask is the JAX run's, so that
+    the port's PnP tests the hypotheses the JAX package's did.  Elsewhere
+    (another candidate, or other matches: the JAX run's indices would then
+    point at non-matches) it returns the port's own draw.  Each attempt's
+    (frame, slot, mask, whether the draw was the JAX run's) is kept."""
+    import base64
+
+    import torch
+
+    from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+
+    by_key = {(a["frame_id"], a["slot"]): a for a in ref["pnp_attempts"]}
+    own = slam._pnp_sets
+    cur, asked = {}, []
+    matches = T.reloc_matches
+
+    def reloc_matches(m, cand, feats, cam):
+        cur["slot"] = int(cand)
+        return matches(m, cand, feats, cam)
+
+    def draws(valid, seed):
+        a = by_key.get((int(seed), cur["slot"]))
+        same = a is not None and np.array_equal(valid.cpu().numpy(), jax_pnp_mask(a))
+        asked.append((int(seed), cur["slot"], valid, same))
+        if not same:
+            return own(valid, seed)
+        sets = np.frombuffer(base64.b64decode(a["sets"]), "<i2").reshape(a["shape"])
+        return torch.from_numpy(sets.astype(np.int64)).to(valid.device)
+
+    draws.asked, draws.reloc_matches, draws.original = asked, reloc_matches, matches
+    return draws
+
+
+class AttemptParts:
+    """While ``on``, times the parts of a relocalisation attempt on the host
+    clock with the card synchronised before and after each: every function
+    put in place by ``add`` adds its ms to ``cur``; while off it only calls
+    through.  ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.on, self.cur, self.orig = False, {}, {}
+
+    def add(self, obj, attr):
+        import torch
+
+        if (obj, attr) in self.orig:
+            return
+        fn = self.orig[(obj, attr)] = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            if not self.on:
+                return fn(*args, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.cur[attr] = self.cur.get(attr, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        setattr(obj, attr, timed)
+
+    def restore(self):
+        for (obj, attr), fn in self.orig.items():
+            setattr(obj, attr, fn)
+
+
+def run_reloc_lap(ref, dev, smi) -> tuple[dict, dict]:
+    """The kidnapped monocular lap: ``MonoSLAM.process`` frame by frame at
+    ``bench.py``'s monocular configuration on the JAX run's two-view and PnP
+    draws, held to the JAX run (``tests/fixtures/mono_reloc_lap.json``).
+    Returns (launch counts, measurements)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline import system as S
+    from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    centres, frames = reloc_inputs(ref)
+    n = len(frames)
+    ids = [f for f, _ in frames]
+    staged = torch.from_numpy(np.stack([img for _, img in frames])).to(dev)
+    slam = S.MonoSLAM(mono_config(), device=dev)
+    slam._minimal_sets = init_draws = fixture_draws(ref)
+    slam._pnp_sets = pnp_draws = fixture_pnp_draws(ref, slam)
+    attempts, relocs, pnp_counts = [], [], []
+    reloc, pnp_fn = slam._try_relocalize, S.PNP.pnp_ransac
+
+    parts, part_ms = AttemptParts(), []
+
+    def timed_reloc(feats, frame_id):
+        if slam.reloc_db is not None:
+            parts.add(slam.reloc_db, "compute_bow")
+            parts.add(slam.reloc_db, "detect_candidates")
+        parts.cur, parts.on = {}, True
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reloc(feats, frame_id)
+        torch.cuda.synchronize()
+        parts.on = False
+        attempts.append((int(frame_id), (time.perf_counter() - t0) * 1e3, out is not None))
+        part_ms.append({k: round(v, 3) for k, v in parts.cur.items()})
+        if out is not None:  # the attempt's last PnP is the one that succeeded
+            relocs.append({"frame_id": int(frame_id), "slot": int(slam.last_kf_slot),
+                           "pnp_inliers": int(pnp_counts[-1]), "retrack_inliers": int(out[2])})
+        return out
+
+    def counted_pnp(*args, **kw):
+        res = pnp_fn(*args, **kw)
+        pnp_counts.append(res.n_inliers)
+        return res
+
+    slam._try_relocalize = timed_reloc
+    T.reloc_matches, S.PNP.pnp_ransac = pnp_draws.reloc_matches, counted_pnp
+    for obj, attr in ((S.MS, "covisibility_matrix"), (S.MS, "local_map_mask"),
+                      (T, "track_frame"), (T, "reloc_matches"), (S.PNP, "pnp_ransac"),
+                      (slam, "_pnp_sets")):
+        parts.add(obj, attr)
+    ck.reset_launch_counts()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, fid in enumerate(ids):
+            slam.process(staged[i], fid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        parts.restore()
+        T.reloc_matches, S.PNP.pnp_ransac = pnp_draws.original, pnp_fn
+    launches = ck.launch_counts()
+
+    states = [r.state for r in slam.trajectory]
+    if len(states) != n:
+        raise AssertionError(f"reloc lap: {len(states)} records for {n} frames")
+    est = slam.positions()
+    if not np.all(np.isfinite(est)):
+        raise AssertionError("reloc lap: non-finite positions")
+    poses = slam.final_poses()
+    if len(poses) != n or not all(np.all(np.isfinite(R)) and np.all(np.isfinite(t)) for R, t in poses):
+        raise AssertionError("reloc lap: final_poses() is not one finite pose per frame")
+    kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
+    init = next((i for i, st in enumerate(states) if st == "OK"), None)
+    if init is None:
+        raise AssertionError(f"reloc lap: never initialised (states {states[:10]}...)")
+    blank = np.isnan(centres[:, 0])
+    use = [ids.index(kf_frames[0])] + [i for i in range(init, n) if not blank[i]]
+    ate, _, (_, _, scale) = ate_rmse(est[use], centres[use], with_scale=True)
+    tracked = sum(st == "OK" for st in states)
+    for i, rec in enumerate(slam.trajectory):
+        j = ref["states"][i]
+        if i < init + 2 or i % 10 == 0 or rec.state != "OK" or rec.state != j:
+            log(f"[reloc] frame {ids[i]:4d} {rec.state:<16} inliers {rec.n_inliers:4d} "
+                f"(JAX {j} {ref['n_inliers'][i]:4d})")
+
+    # the database: one BoW row per keyframe the mapper inserted (the initial
+    # map's two are not registered, in either package), each L1-normalised
+    db = slam.reloc_db
+    if db is None:
+        raise AssertionError("reloc lap: no relocalisation database was built")
+    rows = [int(s) for s in np.flatnonzero(db.present)]
+    live = [int(s) for s in np.flatnonzero(slam.m.kf_valid.cpu().numpy())]
+    sums = db.bow_mat[rows].sum(-1).cpu().numpy()
+    log(f"[reloc] database rows {rows} (JAX {ref['reloc_db_rows']}), live keyframes {live}, "
+        f"row sums {np.round(sums, 6).tolist()}")
+    if (set(live) - {0, 1}) - set(rows) or any(slam.kf_frame_ids[r] < 0 for r in rows) \
+            or np.abs(sums - 1.0).max() > 1e-4:
+        raise AssertionError("reloc lap: the database does not hold one BoW row per keyframe")
+
+    # the PnP draws and masks against the JAX run's
+    by_key = {(a["frame_id"], a["slot"]): a for a in ref["pnp_attempts"]}
+    for fid, slot, valid, jax_draw in pnp_draws.asked:
+        a = by_key.get((fid, slot))
+        note = "the port's own draw (no such JAX attempt)"
+        if a is not None:
+            diff = int((valid.cpu().numpy() != jax_pnp_mask(a)).sum())
+            note = (f"{'the JAX run' if jax_draw else 'the port'}'s own draw; match mask {diff} of "
+                    f"{a['n']} entries differ (port {int(valid.sum())}, JAX {a['n_valid']} matches)")
+        log(f"[reloc] PnP attempt at frame {fid} against slot {slot}: {note}")
+    same, rows_, diff, entries = match_mask_agreement(ref, init_draws.asked)
+    log(f"[reloc] two-view draws: the port's match masks equal the JAX run's in {same} of {rows_} "
+        f"attempts ({diff} of {entries} entries differ)")
+
+    # one keyframe's BoW transform, timed (device time and per call)
+    slot = rows[-1]
+    desc, valid = slam.m.kf_desc[slot], slam.m.kf_feat_valid[slot]
+    bow_fn = lambda: db.compute_bow(desc, valid)
+    n_feat, n_words = int(desc.shape[0]), db.n_words
+    bow = {"device_ms": device_time_ms(bow_fn), "per_call_ms": cuda_time_ms(bow_fn),
+           "ops": 2 * n_feat * n_words * 256, "n_features": n_feat, "n_words": n_words}
+    # descriptors, their mask, the packed words and idf read once, the words
+    # and the BoW vector written; 2 N W 256 operations in the product
+    bow["bound_ms"], bow["bound_by"] = bound_ms(32 * (n_feat + n_words) + 5 * n_feat
+                                                + 8 * n_words, bow["ops"])
+
+    # the first relocalisation's attempt again, warm, five times (after the
+    # lap: it moves the facade's reference keyframe and motion model)
+    warm = []
+    if relocs:
+        i = ids.index(relocs[0]["frame_id"])
+        feats = slam._extract(staged[i].to(torch.float32))
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reloc(feats, ids[i])
+            torch.cuda.synchronize()
+            warm.append(round((time.perf_counter() - t0) * 1e3, 3))
+    with_cands = [ms for f, ms, _ in attempts if not blank[ids.index(f)]]
+    fps = n / wall
+    meas = {"fps": fps, "wall_s": wall, "reloc_attempts": len(attempts),
+            "reloc_attempt_ms": [round(ms, 3) for _, ms, _ in attempts],
+            "reloc_attempt_parts_ms": part_ms, "warm_reloc_attempt_ms": warm,
+            "reloc_attempt_ms_median": float(np.median([ms for _, ms, _ in attempts])),
+            "revisit_attempt_ms": with_cands, "bow_transform": bow,
+            "relocalisations": relocs, "tracked": tracked, "ate_m": float(ate), "n_kf": slam.n_kf}
+    log(f"[reloc] relocalised {[(r['frame_id'], r['slot'], r['pnp_inliers'], r['retrack_inliers']) for r in relocs]} "
+        f"(frame, slot, PnP inliers, re-track inliers; JAX "
+        f"{[(r['frame_id'], r['slot'], r['pnp_inliers'], r['retrack_inliers']) for r in ref['relocalisations']]})")
+    log(f"[reloc] initialised at frame {ids[init]} (JAX {ref['init_frame']}), tracked {tracked}/{n} "
+        f"(JAX {ref['tracked']}), Sim(3) ATE {ate:.5f} over {len(use)} frames (JAX "
+        f"{ref['ate_m']:.5f}, scale {scale:.3f}), keyframes {slam.n_kf} at {kf_frames} (JAX "
+        f"{ref['n_kf']} at {ref['kf_frame_ids']}), map points {slam.n_mp} (JAX {ref['n_mp']})")
+    log(f"[reloc] {len(attempts)} relocalisation attempts, {np.median([ms for _, ms, _ in attempts]):.2f} "
+        f"ms median (host clock, card synchronised; {[round(ms, 2) for _, ms, _ in attempts]}); "
+        f"the revisit's {[round(m, 2) for m in with_cands]}, by part {part_ms[-len(with_cands):]}; "
+        f"the first relocalisation's attempt again, warm: {warm} ms; one keyframe's BoW transform "
+        f"({n_feat} x {n_words} words) {bow['device_ms']:.4f} ms device, {bow['per_call_ms']:.4f} "
+        f"ms per call, bound {bow['bound_ms']:.4f} ({bow['bound_by']}); {fps:.2f} frames/s over "
+        f"the {n}-frame lap ({wall:.2f} s; {smi})")
+    log(f"[reloc] launches {launches}")
+
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"reloc lap: launch counts {launches}, expected {want} (one a frame)")
+    jrel = ref["relocalisations"]
+    if len(relocs) != len(jrel):
+        raise AssertionError(f"reloc lap: {len(relocs)} relocalisations, JAX {len(jrel)}")
+    for r, j in zip(relocs, jrel):
+        if ids.index(r["frame_id"]) > ids.index(j["frame_id"]) + RELOC_FRAME_MARGIN \
+                or r["slot"] != j["slot"]:
+            raise AssertionError(f"reloc lap: relocalised at {r}, JAX at {j}")
+        if r["pnp_inliers"] < RELOC_PNP_SHARE * j["pnp_inliers"]:
+            raise AssertionError(f"reloc lap: PnP inliers {r['pnp_inliers']}, JAX {j['pnp_inliers']}")
+    if tracked < ref["tracked"] - MONO_TRACKED_MARGIN:
+        raise AssertionError(f"reloc lap: tracked {tracked} < {ref['tracked']} - {MONO_TRACKED_MARGIN}")
+    if ate > RMSE_FACTOR * ref["ate_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"reloc lap: ATE {ate:.5f} > 2 x {ref['ate_m']:.5f} + 2 mm")
+    if abs(slam.n_kf - ref["n_kf"]) > MONO_KF_MARGIN:
+        raise AssertionError(f"reloc lap: {slam.n_kf} keyframes, JAX run {ref['n_kf']}")
+    return launches, meas
+
+
 def run_stereo_batch_lap(cfg, poses, frames, ref, dev, smi) -> tuple[dict, float]:
     """``StereoSLAM``: ``process`` until initialised, then ``process_batch``
     in batches of 16 over the lap's pairs (staged on the card), held to the
@@ -1103,6 +1434,7 @@ def main() -> int:
     ref_rgbd, ref_stereo = load_fixture(FIXTURE), load_fixture(STEREO_FIXTURE)
     ref_mono = load_fixture(MONO_FIXTURE, MONO_FRAMES)
     ref_stereo_batch = load_fixture(STEREO_BATCH_FIXTURE)
+    ref_reloc = load_fixture(RELOC_FIXTURE, RELOC_FRAMES)
     cfg = lap_config()
     t0 = time.perf_counter()
     poses, frames = lap_inputs(N_FRAMES)
@@ -1167,8 +1499,11 @@ def main() -> int:
                                        ref_mono, dev, smi)
     by_lap["stereo_batch_lap"], fps_sb = lap("stereo_batch_lap", run_stereo_batch_lap, cfg, poses,
                                              frames, ref_stereo_batch, dev, smi)
+    by_lap["mono_reloc_lap"], reloc = lap("mono_reloc_lap", run_reloc_lap, ref_reloc, dev, smi)
     log(f"[laps] frames/s: mono {fps_mono:.2f} (process_batch, B={BATCH}, {MONO_FRAMES} frames), "
-        f"stereo batch {fps_sb:.2f} ({N_FRAMES} pairs); {smi}")
+        f"stereo batch {fps_sb:.2f} ({N_FRAMES} pairs), kidnapped mono {reloc['fps']:.2f} "
+        f"(process, {RELOC_FRAMES} frames); {smi}")
+    log(f"[laps] kidnapped lap: {json.dumps(reloc)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

@@ -2,13 +2,13 @@
 
 A second package beside :mod:`orb_slam3_noted_tpu`, which stays the
 reference: every module here mirrors the JAX module of the same name and is
-held to it by the parity tests in ``tests/test_torch_*.py``.  The slice that
-exists so far is RGB-D tracking in localisation mode (``pipeline/system.py``
-``RGBDSLAM``): ORB extraction, local-map projection matching and motion-only
-pose optimisation.  The three front-end kernels that the JAX package wrote
-in Pallas (FAST score, 7-tap blur, rBRIEF sampling) are CUDA C++ for
-``sm_90a`` in ``csrc/``, built with ``nvcc`` on first use and bound with
-``ctypes`` (``ops/cuda_kernels.py``).
+held to it by the parity tests in ``tests/test_torch_*.py``.  Ported so far
+(``pipeline/system.py``): monocular, stereo and RGB-D SLAM with loop closing
+off, frame by frame and in batches, with the keyframe mapper, relocalisation
+(``place/``, ``optim/pnp.py``) and localisation mode.  The four kernels that
+the JAX package wrote in Pallas (FAST score, 7-tap blur, rBRIEF sampling,
+stereo SAD) are CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` on
+first use and bound with ``ctypes`` (``ops/cuda_kernels.py``).
 
 Plain functions on tensors; every entry point that allocates state takes an
 explicit ``device``.  This package never imports ``jax``.

@@ -62,17 +62,19 @@ def _null_vector(A: torch.Tensor) -> torch.Tensor:
     return torch.linalg.eigh(G)[1][..., :, 0]
 
 
-def sample_minimal_sets(valid: torch.Tensor, n_hyp: int, generator: torch.Generator) -> torch.Tensor:
-    """(..., n_hyp, 8) int64 indices: per hypothesis 8 distinct entries drawn
-    with probability mass on ``valid`` (..., N), by a Gumbel top-k over
-    ``log p`` (``jax.random.choice(..., replace=False, p=p)``).  With fewer
-    than 8 valid entries the rest are invalid ones, lowest index first."""
+def sample_minimal_sets(valid: torch.Tensor, n_hyp: int, generator: torch.Generator,
+                        size: int = 8) -> torch.Tensor:
+    """(..., n_hyp, size) int64 indices: per hypothesis ``size`` distinct
+    entries drawn with probability mass on ``valid`` (..., N), by a Gumbel
+    top-k over ``log p`` (``jax.random.choice(..., replace=False, p=p)``).
+    With fewer than ``size`` valid entries the rest are invalid ones, lowest
+    index first."""
     p = valid.to(torch.float32)
     p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1.0)
     u = torch.rand((*valid.shape[:-1], n_hyp, valid.shape[-1]), generator=generator,
                    device=valid.device)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-30)))
-    return topk_stable(torch.log(p)[..., None, :] + gumbel, 8)[1]
+    return topk_stable(torch.log(p)[..., None, :] + gumbel, size)[1]
 
 
 def _eight_point_essential(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

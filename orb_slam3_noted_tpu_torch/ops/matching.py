@@ -34,7 +34,12 @@ def unpack_bits(desc: torch.Tensor) -> torch.Tensor:
 def hamming_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(..., Na, 8) x (..., Nb, 8) packed descriptors -> (..., Na, Nb) int32
     Hamming distances (leading dimensions broadcast)."""
-    ba, bb = unpack_bits(a), unpack_bits(b)
+    return hamming_bits(unpack_bits(a), unpack_bits(b))
+
+
+def hamming_bits(ba: torch.Tensor, bb: torch.Tensor) -> torch.Tensor:
+    """:func:`hamming_matrix` of descriptors already unpacked to (..., N,
+    256) 0/1 float32 bits."""
     dot = ba @ bb.transpose(-1, -2)
     pa = ba.sum(-1)
     pb = bb.sum(-1)

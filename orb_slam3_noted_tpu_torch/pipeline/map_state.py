@@ -194,6 +194,16 @@ def covisibility_weights(m: MapArrays, slot: int) -> torch.Tensor:
     return _set(w, slot, 0.0)
 
 
+def covisibility_matrix(m: MapArrays) -> torch.Tensor:
+    """(KF, KF) shared-map-point counts with a zero diagonal: one float32
+    product of the 0/1 observation matrix (exact: counts < 2^24; a bf16
+    product would round counts above 256)."""
+    a = m.obs_mat.to(torch.float32)
+    cv = a @ a.T
+    cv = cv * (m.kf_valid[:, None] & m.kf_valid[None, :])
+    return cv * (1.0 - torch.eye(cv.shape[0], dtype=cv.dtype, device=cv.device))
+
+
 def local_map_mask(m: MapArrays, slot: int, n_neighbors: int = 10):
     """Map-point mask + KF mask of the covisibility-local map around `slot`
     (``Tracking::UpdateLocalKeyFrames/UpdateLocalPoints``)."""

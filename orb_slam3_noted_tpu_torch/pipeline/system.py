@@ -17,17 +17,25 @@ batch: extraction once for all its frames, tracking frame after frame on
 the device, one device-to-host copy of everything the host walks per
 dispatch, and the keyframe policy evaluated per frame.
 
-What is not ported raises ``NotImplementedError`` naming its step in
-ROADMAP.md (next steps): relocalisation and loop closing (2).  Without a
-relocalisation database a lost frame stays lost until projection matching
-recovers.
+A frame that tracks too few points tries relocalisation
+(``Tracking::Relocalization``): BoW candidates from the keyframe database
+(:mod:`..place`, with covisibility-group accumulation), SearchByBoW matches
+against each candidate, PnP RANSAC (:mod:`..optim.pnp`) and a re-track of
+the local map from its pose.  With loop closing off (the only mode ported)
+the facade keeps a standalone database, to which every keyframe the mapper
+inserts is added, as the reference's database exists whatever loop closing
+does; without the vocabulary asset relocalisation is unavailable, as in the
+JAX package.  Batch mode never relocalises, in either package.  Loop
+closing raises ``NotImplementedError`` naming its step in ROADMAP.md (next
+steps 2).
 
 All state lives on the constructor's ``device`` (the CUDA device unless the
 caller names another); the host holds the scalar counters, the trajectory
 records (numpy) and the state machine.  The map-point allocation pointer
 ``n_mp`` is a plain int, read back once per keyframe.  The RANSAC draws of
 the monocular initialisation come from a ``torch.Generator`` on that device
-seeded with the frame id (:meth:`MonoSLAM._minimal_sets`).
+seeded with the frame id (:meth:`MonoSLAM._minimal_sets`), and so do the
+PnP draws of a relocalisation attempt (:meth:`MonoSLAM._pnp_sets`).
 """
 
 from __future__ import annotations
@@ -45,8 +53,11 @@ from orb_slam3_noted_tpu_torch.ops import image as I
 from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
+from orb_slam3_noted_tpu_torch.optim import pnp as PNP
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+from orb_slam3_noted_tpu_torch.place.database import KeyFrameDatabase
+from orb_slam3_noted_tpu_torch.place.pretrained import load_default_vocabulary
 from orb_slam3_noted_tpu_torch.utils.interop import set_scalar
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
@@ -62,12 +73,17 @@ STEREO_RANGE = "stereo_matching"
 PYRAMID_RANGE = "pyramid"
 EXTRACTION_PARTS = (PYRAMID_RANGE, O.SELECT_RANGE, O.ANGLE_RANGE, O.DESCRIBE_RANGE)
 # the facade's stages: initialisation attempts, a batch dispatch, a re-track
-# after a mid-batch keyframe, and the mapper pass of a keyframe
+# after a mid-batch keyframe, the mapper pass of a keyframe, a relocalisation
+# attempt's matching, PnP and re-track, and the place-recognition work (a
+# relocalisation query, a keyframe's BoW vector); none nests in another
 INIT_RANGE = "initialize"
 TRACK_BATCH_RANGE = "track_batch"
 RETRACK_RANGE = "track_batch_feats"
 KEYFRAME_RANGE = "insert_keyframe"
-STAGES = (INIT_RANGE, TRACK_BATCH_RANGE, RETRACK_RANGE, KEYFRAME_RANGE)
+RELOC_RANGE = "relocalize"
+PLACE_RANGE = "place_recognition"
+STAGES = (INIT_RANGE, TRACK_BATCH_RANGE, RETRACK_RANGE, KEYFRAME_RANGE, RELOC_RANGE, PLACE_RANGE)
+RELOC_MIN_MATCHES = 15  # SearchByBoW matches a candidate needs before PnP
 
 
 def _todo(what: str, step: int):
@@ -162,8 +178,9 @@ class MonoSLAM:
         self.frames_since_kf = 0
         self.tracked_at_kf = 0
         self.lost_frames = 0
-        # built by the relocalisation and loop-closing slice: both stay None
-        self.loop_closer = None
+        self.loop_closer = None  # loop closing is not ported: stays None
+        # standalone relocalisation database, built at the first keyframe
+        # the mapper inserts (the reference's exists whatever loop closing does)
         self.reloc_db = None
 
     # ------------------------------------------------------------------
@@ -602,12 +619,73 @@ class MonoSLAM:
             self._record(fid, self.last_Rcw, self.last_tcw, 0)
         return len(frame_ids)
 
+    def _pnp_sets(self, valid: torch.Tensor, seed: int) -> torch.Tensor:
+        """PnP minimal sets of a relocalisation attempt, (N_HYP, 6) distinct
+        valid matches, drawn from a generator on the facade's device seeded
+        with the frame id (the JAX package seeds its key with it)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(seed))
+        return TV.sample_minimal_sets(valid, PNP.N_HYP, g, size=6)
+
     def _try_relocalize(self, feats, frame_id):
-        """None while no relocalisation database exists (the only case the
-        ported slices reach); querying one is not ported."""
-        if self.reloc_db is None and self.loop_closer is None:
+        """BoW candidates -> SearchByBoW matches -> PnP RANSAC -> re-track of
+        the candidate's local map from the PnP pose.  Returns (Rcw, tcw,
+        n_inl, mp_of_feat) on success, else None (also while no database
+        exists).  The query copies its winners back once; per candidate the
+        host reads the match count, the PnP verdict and the re-track's
+        inlier count (and ``track_frame`` its own retry check)."""
+        db = self._reloc_database()
+        if db is None:
             return None
-        raise _todo("relocalisation", 2)
+        cfg = self.cfg
+        with torch.profiler.record_function(PLACE_RANGE):
+            _, bow = db.compute_bow(feats.desc, feats.valid)
+            exclude = torch.zeros(cfg.max_keyframes, dtype=torch.bool, device=self.device)
+            # the full DetectRelocalizationCandidates policy: covisibility-group
+            # accumulation, not the best scores alone
+            slots, _ = db.detect_candidates(bow, exclude, n_best=3, min_rel_score=0.75,
+                                            covis=MS.covisibility_matrix(self.m))
+        with torch.profiler.record_function(RELOC_RANGE):
+            for cand in slots:
+                Xw, rays, ok = T.reloc_matches(self.m, cand, feats, self.cam)
+                if int(torch.sum(ok)) < RELOC_MIN_MATCHES:
+                    continue
+                res = PNP.pnp_ransac(Xw, rays, ok, self._pnp_sets(ok, frame_id))
+                if not bool(res.success):
+                    continue
+                mp_mask, _ = MS.local_map_mask(self.m, cand, n_neighbors=cfg.local_window)
+                Rcw, tcw, n_inl, mp_of_feat, _, _ = T.track_frame(
+                    self.m, feats, res.Rcw, res.tcw, mp_mask, self.cam, cfg, feat_uvr=None,
+                    bf=0.0,
+                )
+                self._mp_remap = None  # fresh bindings against the current map
+                n = int(n_inl)
+                if n >= 2 * cfg.min_tracked_points:
+                    self.last_kf_slot = cand
+                    self.vel = None
+                    return Rcw, tcw, n, mp_of_feat
+        return None
+
+    def _reloc_database(self):
+        """The database relocalisation queries: the loop closer's, or the
+        standalone one kept while loop closing is off."""
+        if self.loop_closer is not None:
+            return self.loop_closer.db
+        return self.reloc_db
+
+    def _register_reloc_kf(self, slot: int):
+        """Add keyframe ``slot`` to the standalone database, building it at
+        the first call; without the vocabulary asset there is none, and
+        relocalisation is unavailable."""
+        if self.reloc_db is None:
+            vocab, idf = load_default_vocabulary()
+            if vocab is None:
+                return
+            self.reloc_db = KeyFrameDatabase(vocab, self.cfg.max_keyframes, idf=idf,
+                                             device=self.device)
+        with torch.profiler.record_function(PLACE_RANGE):
+            _, bow = self.reloc_db.compute_bow(self.m.kf_desc[slot], self.m.kf_feat_valid[slot])
+            self.reloc_db.add(slot, bow)
 
     def _insert_keyframe(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
                          uvr=None, depth=None):
@@ -648,6 +726,9 @@ class MonoSLAM:
         self.last_kf_slot = slot
         self.frames_since_kf = 0
         self.tracked_at_kf = max(n_inl, 1)
+        # loop closing is off (it raises at construction): the standalone
+        # database serves relocalisation
+        self._register_reloc_kf(slot)
 
     # ------------------------------------------------------------------
     def _orb_args(self) -> dict:
@@ -744,20 +825,24 @@ class MonoSLAM:
         return m, n_new
 
     def positions(self) -> np.ndarray:
-        """(N, 3) camera-centre trajectory (world frame), relative records
-        composed with their reference keyframe's current pose."""
+        """(N, 3) camera-centre trajectory (world frame) of :meth:`final_poses`."""
+        return np.stack([-R.T @ t for R, t in self.final_poses()])
+
+    def final_poses(self) -> list:
+        """[(Rcw, tcw)] per trajectory record, relative records composed with
+        their reference keyframe's current pose, so that every refinement
+        since track time shows (the full-pose sibling of :meth:`positions`;
+        reference ``SaveTrajectoryTUM``)."""
         kfR = _np(self.m.kf_Rcw)
         kft = _np(self.m.kf_tcw)
         out = []
         for rec in self.trajectory:
             if rec.ref_slot >= 0 and rec.rel_R is not None:
                 Rr, tr = kfR[rec.ref_slot], kft[rec.ref_slot]
-                R = rec.rel_R @ Rr
-                t = rec.rel_R @ tr + rec.rel_t
+                out.append((rec.rel_R @ Rr, rec.rel_R @ tr + rec.rel_t))
             else:
-                R, t = rec.Rcw, rec.tcw
-            out.append(-R.T @ t)
-        return np.stack(out)
+                out.append((np.asarray(rec.Rcw), np.asarray(rec.tcw)))
+        return out
 
 
 class StereoSLAM(MonoSLAM):

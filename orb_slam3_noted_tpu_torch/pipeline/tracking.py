@@ -200,6 +200,25 @@ def track_frame(
     return res.Rcw, res.tcw, res.n_inliers, mp_of_feat[:NF], vis, keep
 
 
+def reloc_matches(m: MS.MapArrays, cand_slot: int, feats: O.FrameFeatures, cam: cam_mod.Camera):
+    """3D-2D matches for relocalisation against a candidate keyframe (the
+    ``SearchByBoW(KF, F)`` step of ``Tracking::Relocalization``): the frame's
+    features matched to the candidate's features that carry a map point,
+    mutual nearest neighbours within ``TH_LOW``.  Returns (Xw (NF, 3), rays
+    (NF, 3) on z = 1, ok (NF,) bool)."""
+    d = M.hamming_matrix(feats.desc, m.kf_desc[cand_slot])
+    kf_mp = m.kf_mp[cand_slot]
+    gate = feats.valid[:, None] & ((kf_mp >= 0) & m.kf_feat_valid[cand_slot])[None, :]
+    masked = torch.where(gate, d, M.BIG)
+    best = torch.amin(masked, dim=1)
+    idx = torch.argmin(masked, dim=1)   # first minima, as jnp.argmin
+    back = torch.argmin(masked, dim=0)
+    ok = (best <= M.TH_LOW) & (back[idx] == torch.arange(d.shape[0], device=d.device))
+    mp = kf_mp[idx].clamp(min=0).long()
+    ok = ok & m.mp_valid[mp]
+    return m.mp_pos[mp], cam_mod.unproject(cam, feats.xy), ok
+
+
 # ---------------------------------------------------------------------------
 # new map points between keyframes
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@
     python3 scripts/torch_port_bench.py [--laps mono,stereo]
 
 The JAX package's ``bench.py`` laps, driven through the port on ``cuda``
-with loop closing off (not ported yet):
+with loop closing off (not ported yet); as in the JAX package, every
+keyframe the mapper inserts is then added to the standalone relocalisation
+database (one 32k-word BoW transform each):
 
 - mono: ``MonoSLAM.process_batch`` in batches of 16 from frame 0 over 120
   frames of ``orbit_trajectory(120, forward=0.03, yaw0=0.45)`` in

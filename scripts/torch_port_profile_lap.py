@@ -1,6 +1,6 @@
 """Where the time of the port's smoke laps goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono] [--runs 2]
+    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono|mono_reloc] [--runs 2]
                                               [--out-dir DIR] [--tree DIR]
 
 Drives the lap of ``chip_smoke.py`` (same configuration, same rendered
@@ -33,8 +33,18 @@ with ``torch.profiler`` over its first ``--profile-batches`` batches (default
 2: the initialisation, the first tracking batch and the first keyframes;
 a whole lap is millions of events), with kernel launches, host-to-device
 copies and host ms split across the facade's stages (``initialize``,
-``track_batch``, ``track_batch_feats``, ``insert_keyframe``, the rest), per
+``track_batch``, ``track_batch_feats``, ``insert_keyframe``,
+``place_recognition`` -- each keyframe's BoW vector --, the rest), per
 profiled window and per frame.
+
+``--mode mono_reloc`` drives ``chip_smoke.py``'s kidnapped monocular lap
+(``MonoSLAM.process`` frame by frame: 36 mapped frames, 3 blank ones, a
+rolled revisit that relocalises), ``--runs`` plain laps (frames/s, the
+frames relocalised), then one more lap with ``torch.profiler`` over the 10
+frames from the last 3 mapped ones to the revisit's 4th, split as for
+``mono`` with the ``relocalize`` and ``place_recognition`` stages (a
+relocalisation attempt's matching, PnP and re-track; its BoW query and each
+keyframe's BoW vector).
 
 Prints one JSON object last, and the card's name and power limit before it;
 writes the operations by device time to ``<out-dir>/profile_<mode>_<from>.txt``
@@ -59,6 +69,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 PROFILE_FRAMES = 16
+RELOC_WINDOW = 10  # mono_reloc: 3 mapped frames, 3 blank ones, 4 of the revisit
 
 
 def run_lap(mode, cfg, frames, dev, profile_range=None):
@@ -239,9 +250,85 @@ def main_mono(args, cs, system) -> int:
     return 0
 
 
+def main_reloc(args, cs, system) -> int:
+    """``chip_smoke.py``'s kidnapped monocular lap, frame by frame: plain
+    laps, then one under ``torch.profiler`` over ``RELOC_WINDOW`` frames
+    from the last mapped ones through the blank frames to the first
+    relocalisations, split by the facade's stages."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops.cuda_kernels import build_library
+    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM
+
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    build_library()
+    ref = cs.load_fixture(cs.RELOC_FIXTURE, cs.RELOC_FRAMES)
+    _, frames = cs.reloc_inputs(ref)
+    ids = [f for f, _ in frames]
+    staged = torch.from_numpy(np.stack([img for _, img in frames])).to(dev)
+    start = ids.index(ref["frame_ids"][ref["pose_index"].index(None)]) - 3
+    window = range(start, start + RELOC_WINDOW)
+
+    def lap(prof=None):
+        slam = MonoSLAM(cs.mono_config(), device=dev)
+        relocs, reloc = [], slam._try_relocalize
+
+        def noted(feats, frame_id):
+            out = reloc(feats, frame_id)
+            if out is not None:
+                relocs.append(int(frame_id))
+            return out
+
+        slam._try_relocalize = noted
+        torch.cuda.synchronize()
+        t0, t_win = time.perf_counter(), 0.0
+        for i, fid in enumerate(ids):
+            if prof is not None and i == window.start:
+                prof.__enter__()
+                t_win = time.perf_counter()
+            slam.process(staged[i], fid)
+            if prof is not None and i == window.stop - 1:
+                torch.cuda.synchronize()
+                t_win = time.perf_counter() - t_win
+                prof.__exit__(None, None, None)
+        torch.cuda.synchronize()
+        return slam, time.perf_counter() - t0, t_win, relocs
+
+    laps = []
+    for run in range(args.runs):
+        slam, wall, _, relocs = lap()
+        laps.append({"fps": len(ids) / wall, "wall_s": wall, "relocalised": relocs,
+                     "tracked": sum(r.state == "OK" for r in slam.trajectory), "n_kf": slam.n_kf})
+        print(f"[lap {run}] {laps[-1]}", flush=True)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    _, _, wall_p, relocs = lap(prof)
+    n = len(window)
+    by_stage = split_by_range(prof, system.STAGES, n)
+    by_stage["rest"]["host_ms"] = wall_p * 1e3 / n - sum(
+        r["host_ms"] for k, r in by_stage.items() if k != "rest")
+    plain_ms = float(np.mean([l["wall_s"] for l in laps])) * 1e3 * n / len(ids)
+    out = {
+        "mode": "mono_reloc", "card": smi, "laps": laps, "frames": len(ids),
+        "profile": {"frames": [ids[window.start], ids[window.stop - 1]], "profiled_wall_s": wall_p,
+                    "relocalised": relocs,
+                    **profile_summary(prof, n, plain_ms,
+                                      system.STAGES + (system.EXTRACTION_RANGE,
+                                                       *system.EXTRACTION_PARTS)),
+                    "per_window_by_stage": {k: {f: (v * n if isinstance(v, float) else v)
+                                                for f, v in r.items() if f != "h2d_from"}
+                                            for k, r in by_stage.items()}},
+        "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+    }
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono"), default="stereo")
+    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono", "mono_reloc"), default="stereo")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--profile-from", type=int, default=16)
     ap.add_argument("--profile-batches", type=int, default=2, help="mono: batches profiled")
@@ -259,6 +346,8 @@ def main() -> int:
 
     if args.mode == "mono":
         return main_mono(args, cs, system)
+    if args.mode == "mono_reloc":
+        return main_reloc(args, cs, system)
     dev = torch.device("cuda")
     smi = cs.nvidia_smi()
     cfg = cs.lap_config()

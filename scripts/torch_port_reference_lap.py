@@ -57,7 +57,17 @@ FIXTURES = {
     "stereo": ("stereo_slam_lap.json", 48),
     "stereo_batch": ("stereo_batch_lap.json", 48),
     "mono": ("mono_slam_lap.json", 120),
+    "mono_reloc": ("mono_reloc_lap.json", 120),
 }
+# the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
+# blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
+# with the camera rolled 90 deg about its optical axis (put back on its side
+# while the lens was covered): unrolled, the tracker finds the revisit from
+# the last pose before the blank frames by projection alone, and nothing
+# relocalises
+RELOC_MAPPED, RELOC_BLANK_IDS, RELOC_REVISIT, RELOC_REVISIT_ID0 = 36, (1000, 1001, 1002), (20, 60), 2000
+RELOC_ROLL = np.pi / 2
+PNP_HYP = 128  # ``pnp_ransac``'s default, which ``_try_relocalize`` keeps
 
 
 def lap_inputs(n_frames: int):
@@ -96,6 +106,49 @@ def jax_minimal_sets(matched: np.ndarray, key) -> np.ndarray:
     return np.asarray(jax.jit(jax.vmap(one))(jnp.asarray(matched), keys))
 
 
+def jax_draws_1d(valid: np.ndarray, key, size: int, n_hyp: int) -> np.ndarray:
+    """(n_hyp, size) minimal sets for one (N,) mask, drawn from ``key`` as
+    ``reconstruct_two_views`` (size 8, 256 hypotheses) and ``pnp_ransac``
+    (size 6, 128 hypotheses, ``pnp.py:86-88``) draw them."""
+    import jax
+    import jax.numpy as jnp
+
+    def draw(v, k):
+        p = v.astype(jnp.float32)
+        p = p / jnp.maximum(jnp.sum(p), 1.0)
+        return jax.vmap(lambda kk: jax.random.choice(kk, v.shape[0], shape=(size,),
+                                                     replace=False, p=p))(
+            jax.random.split(k, n_hyp))
+
+    return np.asarray(jax.jit(draw)(jnp.asarray(valid), key))
+
+
+def reloc_schedule() -> list:
+    """[(frame id, index into the mono lap's trajectory, or None for a blank
+    frame)] of the kidnapped lap."""
+    return ([(i, i) for i in range(RELOC_MAPPED)] + [(f, None) for f in RELOC_BLANK_IDS]
+            + [(RELOC_REVISIT_ID0 + i, i) for i in range(*RELOC_REVISIT)])
+
+
+def reloc_rotations(poses) -> np.ndarray:
+    """(n, 3, 3) float32 camera-to-world rotations the kidnapped lap renders,
+    in schedule order: the trajectory's, rolled by ``RELOC_ROLL`` on the
+    revisit, zeros for a blank frame (JAX ``so3.exp`` in float32)."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+
+    roll = np.asarray(so3.exp(jnp.asarray([0.0, 0.0, RELOC_ROLL], jnp.float32)))
+    out = []
+    for fid, k in reloc_schedule():
+        if k is None:
+            out.append(np.zeros((3, 3), np.float32))
+        else:
+            R = np.asarray(poses[k][0], np.float32)
+            out.append(R @ roll if fid >= RELOC_REVISIT_ID0 else R)
+    return np.stack(out).astype(np.float32)
+
+
 def b64(a: np.ndarray) -> str:
     return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode("ascii")
 
@@ -118,6 +171,8 @@ def main():
     stereo = args.mode in ("stereo", "stereo_batch")
     if args.out is None:
         args.out = os.path.join(ROOT, "tests", "fixtures", name)
+    if args.mode == "mono_reloc":
+        return main_mono_reloc(args.out)
 
     import jax
 
@@ -229,6 +284,7 @@ def main():
         "tracked": int(sum(s == "OK" for s in states)),
         "n_mp": int(slam.n_mp),
         "relocalised_frames": relocs,
+        "rwc_f32": b64(np.stack([R for R, _ in poses]).astype("<f4")),
     }
     if mono:
         kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
@@ -237,7 +293,6 @@ def main():
         out.update(
             batch=BATCH, max_map_points=8192, init_frame=init_frames[0],
             ate_frames=use, ate_m=float(ate), ate_scale=float(scale), init_draws=init_draws,
-            rwc_f32=b64(np.stack([R for R, _ in poses]).astype("<f4")),
         )
     else:
         Rwc0, twc0 = poses[0]
@@ -259,6 +314,162 @@ def main():
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("states", "n_inliers", "positions", "ate_frames", "init_draws",
                                    "rwc_f32")}))
+    print(f"wall {wall:.1f} s", file=sys.stderr)
+
+
+def main_mono_reloc(out_path: str):
+    """The kidnapped monocular lap (``reloc_schedule``), frame by frame
+    through ``MonoSLAM.process`` with loop closing off, recording every
+    two-view draw, every relocalisation query and PnP attempt (the frame, the
+    candidate slot, the match mask and the minimal sets ``pnp_ransac`` drew),
+    and what each relocalisation gave."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import orb_slam3_noted_tpu.optim.pnp as jpnp
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.pipeline import system as jsys
+    from orb_slam3_noted_tpu.pipeline import tracking as jtr
+    from orb_slam3_noted_tpu.place.database import KeyFrameDatabase
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom, orbit_trajectory
+
+    cam = Camera(PINHOLE, CAM_PARAMS)
+    n_traj = FIXTURES["mono_reloc"][1]
+    cfg = SlamConfig(camera=cam, width=W, height=H, n_features=1200, max_keyframes=64,
+                     max_map_points=8192, local_window=5, kf_max_interval=10,
+                     enable_loop_closing=False)
+    room = BoxRoom(seed=0)
+    poses = orbit_trajectory(n_traj, forward=0.03, yaw0=0.45)
+    sched = reloc_schedule()
+    rwc = reloc_rotations(poses)
+    blank = np.full((H, W), 128, np.uint8)
+    slam = jsys.MonoSLAM(cfg)
+
+    def seed_of(key) -> int:
+        seed = int(np.asarray(key)[1])
+        assert np.array_equal(np.asarray(key), np.asarray(jax.random.PRNGKey(seed)))
+        return seed
+
+    init_draws, queries, pnp_attempts, relocs, init_frames = [], [], [], [], []
+    cur = {"frame": None, "slot": None}
+    rtv, pnp, matches = jsys.reconstruct_two_views, jpnp.pnp_ransac, jtr.reloc_matches
+    detect, reloc, finish = (KeyFrameDatabase.detect_candidates, slam._try_relocalize,
+                             slam._finish_initialize)
+
+    def recording_rtv(rays1, rays2, matched, key, **kw):
+        m = np.asarray(matched)
+        sets = jax_draws_1d(m, key, 8, 256)
+        init_draws.append({"seed": seed_of(key), "shape": list(sets.shape),
+                           "sets": b64(sets.astype("<i2")), "n": int(m.shape[0]),
+                           "matched": b64(np.packbits(m))})
+        return rtv(rays1, rays2, matched, key, **kw)
+
+    def recording_detect(db, bow_q, exclude_mask, **kw):
+        slots, scores = detect(db, bow_q, exclude_mask, **kw)
+        queries.append({"frame_id": cur["frame"], "slots": slots, "scores": scores})
+        return slots, scores
+
+    def recording_matches(m, cand, feats, cam_):
+        cur["slot"] = int(cand)
+        return matches(m, cand, feats, cam_)
+
+    def recording_pnp(Xw, rays, valid, key, **kw):
+        res = pnp(Xw, rays, valid, key, **kw)
+        v = np.asarray(valid)
+        sets = jax_draws_1d(v, key, 6, PNP_HYP)
+        pnp_attempts.append({
+            "frame_id": seed_of(key), "slot": cur["slot"], "n": int(v.shape[0]),
+            "valid": b64(np.packbits(v)), "n_valid": int(v.sum()), "shape": list(sets.shape),
+            "sets": b64(sets.astype("<i2")), "success": bool(res.success),
+            "n_inliers": int(res.n_inliers),
+            # the replayed draws scored as pnp_ransac scores its own: the same
+            # best count shows they are the draws it made
+            "replayed_inliers": int(score_sets(Xw, rays, valid, jax.numpy.asarray(sets)))})
+        return res
+
+    @jax.jit
+    def score_sets(Xw, rays, valid, sets):
+        jnp = jax.numpy
+        hp = jax.lax.Precision.HIGHEST
+        R, t = jpnp._dlt_p6p(Xw[sets], rays[sets])
+        xc = jnp.einsum("hij,nj->hni", R, Xw, precision=hp) + t[:, None, :]
+        nrm = jnp.linalg.norm(xc, axis=-1) * jnp.linalg.norm(rays, axis=-1)[None, :]
+        cosa = jnp.einsum("hni,ni->hn", xc, rays, precision=hp) / jnp.maximum(nrm, 1e-12)
+        return jnp.max(jnp.sum((cosa > 0.99996) & (xc[..., 2] > 0) & valid[None, :], axis=-1))
+
+    def recording_reloc(feats, frame_id):
+        cur["frame"] = int(frame_id)
+        out = reloc(feats, frame_id)
+        if out is not None:
+            relocs.append({"frame_id": int(frame_id), "slot": int(slam.last_kf_slot),
+                           "retrack_inliers": int(out[2]),
+                           "pnp_inliers": pnp_attempts[-1]["n_inliers"]})
+        return out
+
+    def finish_initialize(feats, frame_id, *rest):
+        finish(feats, frame_id, *rest)
+        if slam.state == "OK":
+            init_frames.append(int(frame_id))
+
+    jsys.reconstruct_two_views, jpnp.pnp_ransac, jtr.reloc_matches = (
+        recording_rtv, recording_pnp, recording_matches)
+    KeyFrameDatabase.detect_candidates = recording_detect
+    slam._try_relocalize, slam._finish_initialize = recording_reloc, finish_initialize
+    t0 = time.perf_counter()
+    for j, (fid, k) in enumerate(sched):
+        rec = slam.process(blank if k is None else
+                           room.render(rwc[j], poses[k][1], cam.params, W, H).astype(np.uint8),
+                           fid)
+        print(f"frame {fid:4d} {rec.state:<16} inliers {rec.n_inliers:4d} keyframes "
+              f"{slam.n_kf} map points {slam.n_mp}", file=sys.stderr)
+    wall = time.perf_counter() - t0
+
+    ids = [f for f, _ in sched]
+    est = slam.positions()
+    states = [r.state for r in slam.trajectory]
+    kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
+    init_at = ids.index(init_frames[0])
+    # keyframe 0's frame and every non-blank frame from the initialisation on
+    use = [ids.index(kf_frames[0])] + [i for i in range(init_at, len(sched))
+                                       if sched[i][1] is not None]
+    gt = np.asarray([poses[k][1] if k is not None else np.zeros(3) for _, k in sched])
+    ate, _, (_, _, scale) = ate_rmse(est[use], gt[use], with_scale=True)
+    db = slam.reloc_db
+    out = {
+        "source": "JAX MonoSLAM, process frame by frame, loop closing off, CPU; frames 0-35 "
+                  "of orbit_trajectory(120, forward=0.03, yaw0=0.45), 3 blank frames, then "
+                  "frames 20-59 again rolled 90 deg about the optical axis (ids 2000 + index; "
+                  "unrolled, or from frames 0-5, the tracker finds the revisit by projection "
+                  "and nothing relocalises)",
+        "frames": len(sched), "trajectory_frames": n_traj, "width": W, "height": H,
+        "camera": list(CAM_PARAMS),
+        "n_features": 1200, "room_seed": 0, "forward": 0.03, "yaw0": 0.45,
+        "max_map_points": 8192, "max_keyframes": 64,
+        "frame_ids": ids, "pose_index": [k for _, k in sched],
+        "states": states, "n_inliers": [int(r.n_inliers) for r in slam.trajectory],
+        "positions": est.astype(float).tolist(),
+        "tracked": int(sum(s == "OK" for s in states)),
+        "init_frame": init_frames[0], "ate_frames": use, "ate_m": float(ate),
+        "ate_scale": float(scale),
+        "n_kf": int(slam.n_kf), "kf_inserted": int(slam.kf_inserted), "n_mp": int(slam.n_mp),
+        "kf_frame_ids": kf_frames,
+        "reloc_db_rows": [int(s) for s in np.flatnonzero(db.present)] if db is not None else None,
+        "relocalised_frames": [r["frame_id"] for r in relocs], "relocalisations": relocs,
+        "reloc_queries": queries, "pnp_attempts": pnp_attempts, "init_draws": init_draws,
+        "final_poses_f32": b64(np.stack([np.concatenate([np.asarray(R).reshape(-1), np.asarray(t)])
+                                         for R, t in slam.final_poses()]).astype("<f4")),
+        "rwc_f32": b64(rwc.astype("<f4")), "roll_rad": float(RELOC_ROLL),
+    }
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("states", "n_inliers", "positions", "ate_frames", "init_draws",
+                                   "rwc_f32", "pnp_attempts", "final_poses_f32", "frame_ids",
+                                   "pose_index")}))
     print(f"wall {wall:.1f} s", file=sys.stderr)
 
 

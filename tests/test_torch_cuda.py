@@ -1,5 +1,6 @@
 """CUDA kernels K1-K4 against their plain PyTorch versions, on the card, and
-the batched front end and two-view solver that drive them.
+the batched front end, two-view solver, place recognition and PnP around
+them.
 
 Marked ``cuda``: every test here skips where ``torch.cuda.is_available()``
 is false (decided inside the fixture, so every worker collects the same
@@ -512,3 +513,88 @@ def test_two_view_reconstruction_on_card_matches_cpu(dev):
     assert idx.device.type == "cuda" and idx.shape == (3, 256, 8)
     assert bool(torch.gather(valid.to(dev), 1, idx.reshape(3, -1)).all())
     assert bool((idx.sort(dim=-1).values.diff(dim=-1) > 0).all())
+
+
+def test_place_recognition_counts_above_256_on_card(dev):
+    """Covisibility and common-word counts are float32 products of 0/1
+    matrices: exact above 256 on the card too (TF32 off; a bf16 product
+    would round 399 to 400 and 1101 to 1104)."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+    from orb_slam3_noted_tpu_torch.place import database as D
+
+    m = MS.empty_map(SlamConfig(max_keyframes=8, max_map_points=2048), device=dev)
+    obs = torch.zeros(m.obs_mat.shape, dtype=torch.bool, device=dev)
+    obs[0, :1201] = True
+    obs[1, :301] = True
+    obs[2, 100:1299] = True
+    cv = MS.covisibility_matrix(m._replace(obs_mat=obs, kf_valid=torch.arange(8, device=dev) < 3))
+    assert cv.device.type == "cuda"
+    assert (cv[0, 1], cv[0, 2], cv[1, 2]) == (301, 1101, 201) and float(cv.diagonal().abs().sum()) == 0
+    W = 2048
+    q = torch.zeros(W, device=dev)
+    q[:500] = 1.0 / 500
+    bow = torch.zeros(4, W, device=dev)
+    for k, n in enumerate((500, 400, 399, 10)):
+        bow[k, :n] = 1.0
+        bow[k, 1500:1500 + (500 - n)] = 1.0
+    bow = bow / bow.sum(-1, keepdim=True)
+    slots, _ = D._detect_nbest(bow, torch.ones(4, dtype=torch.bool, device=dev), q,
+                               torch.zeros(4, dtype=torch.bool, device=dev),
+                               torch.zeros(4, 4, device=dev), 0.75, 3)
+    assert sorted(s for s in slots.cpu().tolist() if s >= 0) == [0, 1]
+
+
+def test_vocabulary_and_database_on_card_match_cpu(dev):
+    """The 32k-word transform of 1200 descriptors (words and distances
+    equal), their BoW vector (1e-6) and a database query (the same slots)
+    on the card and on the CPU."""
+    from orb_slam3_noted_tpu_torch.place.database import KeyFrameDatabase
+    from orb_slam3_noted_tpu_torch.place.pretrained import load_default_vocabulary
+
+    vocab, idf = load_default_vocabulary()
+    assert vocab is not None, "the shipped vocabulary is missing"
+    rng = np.random.default_rng(0)
+    dbs = [KeyFrameDatabase(vocab, 16, idf=idf, device=d) for d in (torch.device("cpu"), dev)]
+    scenes = [rng.integers(0, 2**32, size=(1200, 8), dtype=np.uint32).view(np.int32)
+              for _ in range(6)]
+    valid = torch.from_numpy(rng.uniform(size=1200) < 0.95)
+    for s, d in enumerate(scenes):
+        (wc, bc), (wg, bg) = (db.compute_bow(torch.from_numpy(d).to(db.device),
+                                             valid.to(db.device)) for db in dbs)
+        assert torch.equal(wg.cpu(), wc)
+        torch.testing.assert_close(bg.cpu(), bc, atol=1e-6, rtol=0)
+        for db, b in zip(dbs, (bc, bg)):
+            db.add(s, b)
+    q = torch.from_numpy(scenes[3].copy())
+    q[:300] = torch.from_numpy(rng.integers(0, 2**31, size=(300, 8), dtype=np.int32))
+    got = [db.detect_candidates(db.compute_bow(q.to(db.device), valid.to(db.device))[1],
+                                np.zeros(16, bool), n_best=3) for db in dbs]
+    assert got[1][0] == got[0][0] and got[0][0][0] == 3
+    np.testing.assert_allclose(got[1][1], got[0][1], atol=1e-5)
+
+
+def test_pnp_on_card_matches_cpu(dev):
+    """PnP RANSAC on the same minimal sets on the card (cuSOLVER SVDs, whose
+    null-vector signs may differ from LAPACK's) and on the CPU: the same
+    verdict, inlier counts within 1, the pose within 1e-3."""
+    from orb_slam3_noted_tpu_torch.optim import pnp as P
+
+    rng = np.random.default_rng(0)
+    c, s = np.cos(0.3), np.sin(0.3)
+    R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    t = np.array([0.4, -0.2, 0.6], np.float32)
+    Xw = (rng.uniform(-2, 2, size=(400, 3)) + [0, 0, 5.0]).astype(np.float32)
+    xc = Xw @ R.T + t
+    rays = xc / xc[:, 2:3]
+    rays[:, :2] += rng.normal(0, 2e-4, size=(400, 2))
+    rays[:80, :2] = rng.uniform(-0.5, 0.5, size=(80, 2))
+    valid = torch.from_numpy(np.arange(400) < 380)
+    sets = torch.from_numpy(np.stack([rng.choice(380, 6, replace=False) for _ in range(P.N_HYP)]))
+    args = [torch.from_numpy(Xw), torch.from_numpy(rays.astype(np.float32)), valid, sets]
+    cpu = P.pnp_ransac(*args)
+    card = P.pnp_ransac(*(a.to(dev) for a in args))
+    assert bool(card.success.cpu()) == bool(cpu.success) is True
+    assert abs(int(card.n_inliers) - int(cpu.n_inliers)) <= 1
+    torch.testing.assert_close(card.Rcw.cpu(), cpu.Rcw, atol=1e-3, rtol=0)
+    torch.testing.assert_close(card.tcw.cpu(), cpu.tcw, atol=1e-3, rtol=0)

@@ -10,6 +10,8 @@ equal; float tolerances are stated where they are used.  JAX runs on the
 CPU in float32; states cross as numpy arrays.
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from orb_slam3_noted_tpu_torch.pipeline import map_state as tms
 from orb_slam3_noted_tpu_torch.pipeline import tracking as ttr
 from orb_slam3_noted_tpu_torch.pipeline.system import OK, RGBDSLAM, StereoSLAM
 from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, orbit_trajectory, stereo_pair
+from test_torch_tracking import _RecordingDatabase
 
 W, H = 320, 240
 FX = 260.0
@@ -616,6 +619,9 @@ def test_unported_entry_points_name_their_step():
         StereoSLAM(tcfg(enable_loop_closing=True), device=CPU)
     ts = StereoSLAM(tcfg(), device=CPU)
     assert ts.process_batch([], []) is None  # batch mode is ported (step 1)
-    ts.reloc_db = object()
-    with pytest.raises(NotImplementedError, match="next steps 2"):
-        ts._try_relocalize(None, 0)
+    # relocalisation (step 2a) is ported: no result without a database, and a
+    # database is queried
+    assert ts._try_relocalize(None, 0) is None
+    ts.reloc_db = db = _RecordingDatabase()
+    assert ts._try_relocalize(SimpleNamespace(desc="desc", valid="valid"), 0) is None
+    assert db.calls[0] == ("desc", "valid") and db.calls[1]["min_rel_score"] == 0.75

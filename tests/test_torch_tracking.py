@@ -8,6 +8,7 @@ views.  The scratch map-point slot MP-1 is never compared.
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -272,10 +273,29 @@ def test_unported_paths_raise(frames):
     assert rec.state == "NOT_INITIALIZED" and mono.ref_frame_id == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True), device=cpu)
-    # a relocalisation database would be queried by code that is not ported
-    ts.reloc_db = object()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts._try_relocalize(None, 0)
+    # relocalisation is ported: without a database there is no result, and a
+    # database is queried (the full candidate policy, with covisibility)
+    assert ts.reloc_db is None and ts._try_relocalize(None, 0) is None
+    ts.reloc_db = db = _RecordingDatabase()
+    assert ts._try_relocalize(SimpleNamespace(desc="desc", valid="valid"), 0) is None
+    assert db.calls[0] == ("desc", "valid") and db.calls[1]["n_best"] == 3
+    assert db.calls[1]["covis"].shape == (ts.cfg.max_keyframes,) * 2
+
+
+class _RecordingDatabase:
+    """Stands in for a keyframe database: records the queries, finds no
+    candidate."""
+
+    def __init__(self):
+        self.calls = []
+
+    def compute_bow(self, desc, valid):
+        self.calls.append((desc, valid))
+        return None, None
+
+    def detect_candidates(self, bow, exclude, **kw):
+        self.calls.append(kw)
+        return [], []
 
 
 def test_stereo_points_from_depth(laps, frames):
