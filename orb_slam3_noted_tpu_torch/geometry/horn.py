@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from orb_slam3_noted_tpu_torch.geometry.linalg3 import det3
+
 
 def horn_sim3(
     x: torch.Tensor,
@@ -32,7 +34,7 @@ def horn_sim3(
     yc = y - my[..., None, :]
     S = (yc * w).transpose(-1, -2) @ xc  # (..., 3, 3), maps the x frame to the y frame
     U, D, Vt = torch.linalg.svd(S)
-    d = torch.sign(torch.linalg.det(U @ Vt))
+    d = torch.sign(det3(U @ Vt))
     e = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     R = U @ (e[..., :, None] * Vt)
     var_x = torch.sum(w * xc * xc, dim=(-2, -1))

@@ -13,11 +13,10 @@ Anchor (fixed) observations carry ``wpose_idx == KW``: their pose Jacobians
 are dropped, they only constrain the landmarks.
 
 Everything is float32.  The pose-side sums (KW + 1 segments) are one-hot
-products and so do not depend on summation order; the landmark-side sums are
-``index_add_``, which on a CUDA device adds with atomics in an order that
-changes from run to run, so a step's cost can differ in its last bits
-between runs.  Every LM step is checked against the robust cost before it
-is taken.
+products; the landmark-side sums are segment sums over the observations
+sorted once by point (``ops/segsum.py``).  Both run in a fixed order, so a
+window's result is the same in every run on the card.  Every LM step is
+checked against the robust cost before it is taken.
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ import torch
 from orb_slam3_noted_tpu_torch.geometry import se3, so3
 from orb_slam3_noted_tpu_torch.geometry.linalg3 import inv3
 from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
-from orb_slam3_noted_tpu_torch.ops.segsum import segment_sum
+from orb_slam3_noted_tpu_torch.ops.segsum import segment_order, segment_sum
 from orb_slam3_noted_tpu_torch.optim import factors
 from orb_slam3_noted_tpu_torch.optim.robust import chi2_threshold, huber_cost, huber_weight
 from orb_slam3_noted_tpu_torch.utils import interop
@@ -90,7 +89,7 @@ def _evaluate(cam, Rcw, tcw, points, obs: WindowObs, active, use_huber: bool, bf
 
 
 def _lm_step(cam, Rcw, tcw, points, obs, kf_slots, pose_fixed_w, point_fixed,
-             active, use_huber, lam, bf, lin, cost_old, oh_pose, seg_point):
+             active, use_huber, lam, bf, lin, cost_old, oh_pose, seg_point, pt_order):
     """One cost-checked LM step with the dense reduced camera system.
 
     ``lin`` = (r, Jp, Jl, w) is the linearisation at the current state: an
@@ -121,8 +120,9 @@ def _lm_step(cam, Rcw, tcw, points, obs, kf_slots, pose_fixed_w, point_fixed,
     pose_sums = oh_pose @ pose_side                                           # (KW, 42)
     Hpp = pose_sums[:, :36].reshape(KW, 6, 6)
     gp = pose_sums[:, 36:]
-    Hll = segment_sum(torch.einsum("oai,oaj->oij", w[:, None, None] * Jl, Jl), seg_point, M)
-    gl = segment_sum(torch.einsum("oai,oa->oi", Jl, wr), seg_point, M)
+    Hll = segment_sum(torch.einsum("oai,oaj->oij", w[:, None, None] * Jl, Jl), seg_point, M,
+                      pt_order)
+    gl = segment_sum(torch.einsum("oai,oa->oi", Jl, wr), seg_point, M, pt_order)
 
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
@@ -133,7 +133,7 @@ def _lm_step(cam, Rcw, tcw, points, obs, kf_slots, pose_fixed_w, point_fixed,
     # per-landmark pose coupling U_m = sum_o 1[point_o = m] 1[wpose_o = p] W_o;
     # anchor rows have W_o == 0 (Jp masked)
     WP = W_o[:, None, :, :] * oh_pose.T[:, :, None, None]                     # (O, KW, 6, 3)
-    U = segment_sum(WP, seg_point, M)                                        # (M, KW, 6, 3)
+    U = segment_sum(WP, seg_point, M, pt_order)                                        # (M, KW, 6, 3)
 
     T1 = torch.einsum("mpab,mbc->mpac", U, Cinv)
     S = -torch.einsum("mpac,mqbc->paqb", T1, U)                               # (KW, 6, KW, 6)
@@ -188,6 +188,7 @@ def window_bundle_adjust(
     KW = kf_slots.shape[0]
     kf_slots = kf_slots.long()
     seg_point = obs.point_idx.long()
+    pt_order = segment_order(seg_point, points.shape[0], obs.valid)
     oh_pose = (
         torch.arange(KW, device=tcw_full.device)[:, None] == obs.wpose_idx.long()[None, :]
     ).to(tcw_full.dtype)                                                      # (KW, O)
@@ -201,7 +202,7 @@ def window_bundle_adjust(
         for _ in range(n):
             Rcw, tcw, pts, lam, lin, cost = _lm_step(
                 cam, Rcw, tcw, pts, obs, kf_slots, pose_fixed_w, point_fixed,
-                active, use_huber, lam, bf, lin, cost, oh_pose, seg_point)
+                active, use_huber, lam, bf, lin, cost, oh_pose, seg_point, pt_order)
         return Rcw, tcw, pts
 
     Rcw, tcw, pts = phase(Rcw_full, tcw_full, points, obs.valid, True, n_iters)

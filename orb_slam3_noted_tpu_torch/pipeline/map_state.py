@@ -6,7 +6,8 @@ shapes, so states compare field by field with the JAX package
 function returns a new ``MapArrays`` and leaves its argument untouched.
 Descriptors are int32 tensors holding the JAX package's uint32 bits.
 
-Integer segment sums are ``index_add_`` (exact in any order); where two
+Integer segment sums are ``index_add_`` (exact in any order), float ones
+sum each segment's rows in one fixed order (``ops/segsum.py``); where two
 rows of a scatter can name the same target the write is resolved to the
 last row (:func:`scatter_set_last`), so results do not change from run to
 run on the card.
@@ -20,7 +21,7 @@ import torch
 
 from orb_slam3_noted_tpu_torch.io.config import SlamConfig
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
-from orb_slam3_noted_tpu_torch.ops.segsum import segment_sum
+from orb_slam3_noted_tpu_torch.ops.segsum import segment_order, segment_sum
 from orb_slam3_noted_tpu_torch.utils import interop
 from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 
@@ -329,8 +330,10 @@ def update_point_stats(
     def word_bits(w):
         return ((desc[:, w, None] >> shifts) & 1).to(torch.float32)
 
-    n_obs = segment_sum(okf, seg, MP + 1)[:MP]
-    c_words = [segment_sum(word_bits(w) * okf[:, None], seg, MP + 1)[:MP] for w in range(8)]
+    order = segment_order(seg, MP + 1, row_ok)
+    n_obs = segment_sum(okf, seg, MP + 1, order)[:MP]
+    c_words = [segment_sum(word_bits(w) * okf[:, None], seg, MP + 1, order)[:MP]
+               for w in range(8)]
     sc = sum(torch.sum(cw, dim=1) for cw in c_words)[mp_c]
     for w in range(8):
         sc = sc + torch.sum(word_bits(w) * (n_obs[mp_c, None] - 2.0 * c_words[w][mp_c]), dim=1)
@@ -351,7 +354,7 @@ def update_point_stats(
     centers = -torch.einsum("kji,kj->ki", m.kf_Rcw, m.kf_tcw)  # (KF, 3)
     vec = m.mp_pos[mp_c] - centers[k_idx]
     vn = vec / torch.clamp(torch.linalg.vector_norm(vec, dim=-1, keepdim=True), min=1e-9)
-    nsum = segment_sum(vn * okf[:, None], seg, MP + 1)[:MP]
+    nsum = segment_sum(vn * okf[:, None], seg, MP + 1, order)[:MP]
     nrm = torch.linalg.vector_norm(nsum, dim=-1, keepdim=True)
     mp_normal = torch.where(has[:, None] & (nrm > 1e-9),
                             nsum / torch.clamp(nrm, min=1e-9), m.mp_normal)
@@ -470,3 +473,27 @@ def remap_point_bindings(mp_of_feat: torch.Tensor, inv: torch.Tensor) -> torch.T
 def compose_point_remaps(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """Compose two compaction remaps: oldest index -> newest index."""
     return remap_point_bindings(first, second)
+
+
+def apply_ba_result(
+    m: MapArrays,
+    kf_slots: torch.Tensor,   # (K,) slots that were optimised
+    kf_mask: torch.Tensor,    # (K,) bool which entries are real
+    Rcw: torch.Tensor,        # (K, 3, 3)
+    tcw: torch.Tensor,
+    mp_slots: torch.Tensor,   # (M,)
+    mp_mask: torch.Tensor,    # (M,) bool
+    pos: torch.Tensor,        # (M, 3)
+) -> MapArrays:
+    """Write optimised poses and points back into the map: a scatter-add of
+    the masked delta, not a set, so padded entries add exactly zero and a
+    repeated padded slot can never overwrite a real update."""
+    ks, ms = kf_slots.long(), mp_slots.long()
+    dR = torch.where(kf_mask[:, None, None], Rcw - m.kf_Rcw[ks], 0.0)
+    dt = torch.where(kf_mask[:, None], tcw - m.kf_tcw[ks], 0.0)
+    dp = torch.where(mp_mask[:, None], pos - m.mp_pos[ms], 0.0)
+    return m._replace(
+        kf_Rcw=m.kf_Rcw.index_add(0, ks, dR),
+        kf_tcw=m.kf_tcw.index_add(0, ks, dt),
+        mp_pos=m.mp_pos.index_add(0, ms, dp),
+    )

@@ -1,7 +1,7 @@
 """SLAM system facades (port of :mod:`orb_slam3_noted_tpu.pipeline.system`).
 
-``MonoSLAM``, ``StereoSLAM`` and ``RGBDSLAM`` run full SLAM with loop closing
-off.  Monocular: two-view initialisation (``Tracking::
+``MonoSLAM``, ``StereoSLAM`` and ``RGBDSLAM`` run full SLAM, loop closing
+included.  Monocular: two-view initialisation (``Tracking::
 MonocularInitialization``, :func:`..tracking.init_attempt_batch`), the
 initial map from its triangulated points and a BA over both keyframes, then
 per frame extraction, local-map projection matching and motion-only pose
@@ -21,13 +21,21 @@ A frame that tracks too few points tries relocalisation
 (``Tracking::Relocalization``): BoW candidates from the keyframe database
 (:mod:`..place`, with covisibility-group accumulation), SearchByBoW matches
 against each candidate, PnP RANSAC (:mod:`..optim.pnp`) and a re-track of
-the local map from its pose.  With loop closing off (the only mode ported)
-the facade keeps a standalone database, to which every keyframe the mapper
-inserts is added, as the reference's database exists whatever loop closing
-does; without the vocabulary asset relocalisation is unavailable, as in the
-JAX package.  Batch mode never relocalises, in either package.  Loop
-closing raises ``NotImplementedError`` naming its step in ROADMAP.md (next
-steps 2).
+the candidate's local map from its pose.  With loop closing off the facade
+keeps a standalone database, to which every keyframe the mapper inserts is
+added, as the reference's database exists whatever loop closing does;
+without the vocabulary asset relocalisation is unavailable, as in the JAX
+package.  Batch mode never relocalises, in either package.
+
+With ``cfg.enable_loop_closing`` each keyframe the mapper inserts is queued
+for loop detection (:class:`..loop_closing.LoopCloser`, built at the first
+keyframe on the shipped 32k-word vocabulary, whose database relocalisation
+then queries); the queue drains at the next frame boundary of ``process`` or
+``process_batch`` (mono and stereo) with one device-to-host copy, and a
+correction's deferred fuses and GBA steps run one slice per frame boundary
+(``_service_background``).  ``flush()`` drains everything; stereo and RGB-D
+frame by frame leave their detections queued until then, as the JAX package
+does.
 
 All state lives on the constructor's ``device`` (the CUDA device unless the
 caller names another); the host holds the scalar counters, the trajectory
@@ -54,11 +62,13 @@ from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.optim import pnp as PNP
+from orb_slam3_noted_tpu_torch.pipeline import loop_closing as LC
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
 from orb_slam3_noted_tpu_torch.place.database import KeyFrameDatabase
 from orb_slam3_noted_tpu_torch.place.pretrained import load_default_vocabulary
-from orb_slam3_noted_tpu_torch.utils.interop import set_scalar
+from orb_slam3_noted_tpu_torch.place.vocab import train_vocabulary
+from orb_slam3_noted_tpu_torch.utils.interop import pull as _pull, set_scalar
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
@@ -75,41 +85,25 @@ EXTRACTION_PARTS = (PYRAMID_RANGE, O.SELECT_RANGE, O.ANGLE_RANGE, O.DESCRIBE_RAN
 # the facade's stages: initialisation attempts, a batch dispatch, a re-track
 # after a mid-batch keyframe, the mapper pass of a keyframe, a relocalisation
 # attempt's matching, PnP and re-track, and the place-recognition work (a
-# relocalisation query, a keyframe's BoW vector); none nests in another
+# relocalisation query, a keyframe's BoW vector and loop detection); none of
+# these nests in another
 INIT_RANGE = "initialize"
 TRACK_BATCH_RANGE = "track_batch"
 RETRACK_RANGE = "track_batch_feats"
 KEYFRAME_RANGE = "insert_keyframe"
 RELOC_RANGE = "relocalize"
 PLACE_RANGE = "place_recognition"
-STAGES = (INIT_RANGE, TRACK_BATCH_RANGE, RETRACK_RANGE, KEYFRAME_RANGE, RELOC_RANGE, PLACE_RANGE)
+# loop closing: draining the detection queue (a correction's ``loop_correct``
+# nests inside it), and one slice of a correction's deferred work
+LOOP_DRAIN_RANGE = "loop_drain"
+BACKGROUND_RANGE = "background_slice"
+STAGES = (INIT_RANGE, TRACK_BATCH_RANGE, RETRACK_RANGE, KEYFRAME_RANGE, RELOC_RANGE, PLACE_RANGE,
+          LOOP_DRAIN_RANGE, BACKGROUND_RANGE, LC.CORRECT_RANGE)
 RELOC_MIN_MATCHES = 15  # SearchByBoW matches a candidate needs before PnP
-
-
-def _todo(what: str, step: int):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, next steps {step})")
 
 
 def _np(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
-
-
-def _pull(*xs: torch.Tensor) -> list:
-    """One device-to-host copy of several tensors: flattened to float32
-    (every value that passes here is a float32 or an integer below 2^24),
-    copied at once, and split back into numpy arrays of their shapes and
-    kinds (bool, int64 or float32)."""
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs]).cpu().numpy()
-    out, o = [], 0
-    for x in xs:
-        a = flat[o:o + x.numel()].reshape(x.shape)
-        o += x.numel()
-        if x.dtype == torch.bool:
-            a = a != 0
-        elif not x.is_floating_point():
-            a = a.astype(np.int64)
-        out.append(a)
-    return out
 
 
 def _frame(feats: O.FrameFeatures, i) -> O.FrameFeatures:
@@ -136,8 +130,6 @@ class MonoSLAM:
     """Base facade: map, state machine and trajectory on one device."""
 
     def __init__(self, cfg: SlamConfig, device=None):
-        if cfg.enable_loop_closing:
-            raise _todo("loop closing", 2)
         self.cfg = cfg
         self.cam = cfg.camera
         # the card unless the caller names another device; no fallback
@@ -178,10 +170,39 @@ class MonoSLAM:
         self.frames_since_kf = 0
         self.tracked_at_kf = 0
         self.lost_frames = 0
-        self.loop_closer = None  # loop closing is not ported: stays None
+        self.loop_closer = None  # built at the first keyframe when loop closing is on
+        self._pending_loops = []  # queued loop detections (device work, not read yet)
         # standalone relocalisation database, built at the first keyframe
         # the mapper inserts (the reference's exists whatever loop closing does)
         self.reloc_db = None
+
+    # ------------------------------------------------------------------
+    def flush(self):
+        """Drain the deferred loop-closing work: the queued detections (one
+        device-to-host copy), then the deferred fuses and the in-flight GBA."""
+        if self._pending_loops:
+            with torch.profiler.record_function(LOOP_DRAIN_RANGE):
+                pendings, self._pending_loops = self._pending_loops, []
+                if self.loop_closer.finish_detect_many(self, pendings):
+                    self.state = OK
+        if self.loop_closer is not None:
+            self.loop_closer.finish_gba(self)
+        return self
+
+    def _service_background(self):
+        """One slice of a correction's deferred work per frame boundary (a
+        fuse, or a GBA step): the single-device stand-in for the reference's
+        GBA thread."""
+        if self.loop_closer is not None:
+            with torch.profiler.record_function(BACKGROUND_RANGE):
+                self.loop_closer.service_gba(self, n_steps=1)
+
+    def _frame_boundary(self):
+        """What ``process`` and ``process_batch`` do first: drain the queued
+        detections, then one background slice."""
+        if self._pending_loops:
+            self.flush()
+        self._service_background()
 
     # ------------------------------------------------------------------
     def _refill_free_slots(self, kf_valid: np.ndarray):
@@ -315,6 +336,7 @@ class MonoSLAM:
     # ------------------------------------------------------------------
     def process(self, img, frame_id: int):
         """Feed one grayscale image (H, W), values in [0, 255]."""
+        self._frame_boundary()
         if self.state == NOT_INITIALIZED:
             with torch.profiler.record_function(INIT_RANGE):
                 with torch.profiler.record_function(EXTRACTION_RANGE):
@@ -508,6 +530,7 @@ class MonoSLAM:
         tail), and with ``retrack_after_kf`` re-tracks the frames after the
         first keyframe against the updated map without re-extracting.
         """
+        self._frame_boundary()
         cfg = self.cfg
         i = 0
         while self.state == NOT_INITIALIZED and i < len(imgs):
@@ -708,6 +731,10 @@ class MonoSLAM:
         # free-list half of the map-point lifecycle: compact culled slots
         # away before the allocator runs out
         if self.n_mp > 0.85 * cfg.max_map_points:
+            # compaction permutes point slots under an in-flight GBA's
+            # snapshot: finish it first
+            if self.loop_closer is not None:
+                self.loop_closer.finish_gba(self)
             self.m, n_valid, inv = MS.compact_map_points(self.m)
             self.n_mp = int(n_valid)
             mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
@@ -726,9 +753,34 @@ class MonoSLAM:
         self.last_kf_slot = slot
         self.frames_since_kf = 0
         self.tracked_at_kf = max(n_inl, 1)
-        # loop closing is off (it raises at construction): the standalone
-        # database serves relocalisation
-        self._register_reloc_kf(slot)
+        if cfg.enable_loop_closing:
+            self._maybe_close_loop(slot, feats)
+        else:
+            # the standalone database serves relocalisation
+            self._register_reloc_kf(slot)
+
+    def _maybe_build_loop_closer(self, feats):
+        """Build the loop closer at the first keyframe: on the shipped 32k-word
+        vocabulary, or, without the asset, on a small vocabulary trained on
+        this keyframe's descriptors."""
+        if self.loop_closer is None:
+            vocab, idf = load_default_vocabulary()
+            if vocab is None:
+                desc = _np(feats.desc)[_np(feats.valid)].view(np.uint32)
+                vocab = train_vocabulary(desc, n_words=min(self.cfg.vocab_words,
+                                                           max(len(desc) // 2, 16)),
+                                         n_iters=6, device=self.device)
+                idf = None
+            self.loop_closer = LC.LoopCloser(vocab, self.cfg.max_keyframes,
+                                             min_inliers=self.cfg.loop_min_inliers, idf=idf,
+                                             device=self.device)
+
+    def _maybe_close_loop(self, slot, feats):
+        """Queue keyframe ``slot``'s detection (device work only); it finishes
+        at the next frame boundary, several queued ones with one copy."""
+        self._maybe_build_loop_closer(feats)
+        with torch.profiler.record_function(PLACE_RANGE):
+            self._pending_loops.append(self.loop_closer.start_detect(self, slot))
 
     # ------------------------------------------------------------------
     def _orb_args(self) -> dict:

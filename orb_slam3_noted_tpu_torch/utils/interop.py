@@ -6,6 +6,10 @@ keep the JAX package's field names and shapes, so a dict from
 uint32 in the JAX package and int32 tensors here holding the same bits
 (``>>`` is not implemented for ``torch.uint32``); they cross as
 ``ndarray.view``.  Floats become float32, other integers int32.
+
+``pull`` is the other direction at run time: one device-to-host copy of
+whatever the host must read after a dispatch (the facade's and the loop
+closer's read-backs).
 """
 
 from __future__ import annotations
@@ -63,3 +67,21 @@ def from_numpy(cls, d: dict, device=None):
         name: None if d.get(name) is None else _tensor(d[name], device)
         for name in cls._fields
     })
+
+
+def pull(*xs: torch.Tensor) -> list:
+    """One device-to-host copy of several tensors: flattened to float32
+    (every value that passes here is a float32 or an integer below 2^24),
+    copied at once, and split back into numpy arrays of their shapes and
+    kinds (bool, int64 or float32)."""
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs]).cpu().numpy()
+    out, o = [], 0
+    for x in xs:
+        a = flat[o:o + x.numel()].reshape(x.shape)
+        o += x.numel()
+        if x.dtype == torch.bool:
+            a = a != 0
+        elif not x.is_floating_point():
+            a = a.astype(np.int64)
+        out.append(a)
+    return out

@@ -9,8 +9,8 @@ frames) through the port on ``cuda``:
 1. ``--runs`` plain laps, each timed per frame on the host clock with one
    ``cuda.synchronize`` a frame: median ms/frame with and without a keyframe
    insertion, tracked frames, metric RMSE, keyframes and map points.  Two
-   or more runs show the run-to-run spread (``index_add_`` adds with
-   atomics on the card, so local BA's sums differ in their last bits);
+   or more runs show the run-to-run spread (none is expected: float
+   segment sums take a fixed order, ``ops/segsum.py``);
 2. one more lap with ``torch.profiler`` over 16 frames from
    ``--profile-from`` (default 16; the stereo lap inserts keyframes at
    frames 1, 8, 14 and 37, so the default window holds none and a window

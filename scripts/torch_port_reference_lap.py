@@ -12,9 +12,18 @@ image and its depth; the map is the one built from frame 0's depth.
 frame (keyframe insertion, local BA).
 ``--mode stereo_batch``: the same pairs, ``process`` until initialised, then
 ``process_batch`` in batches of 16 (``bench.py``'s stereo lap).
-``--mode mono``: ``bench.py``'s monocular lap with loop closing off: 120
-left images (``BoxRoom.render``), 8192 map points, ``MonoSLAM.process_batch``
-in batches of 16 from frame 0, two-view initialisation included.
+``--mode mono``: ``bench.py``'s monocular lap: 120 left images
+(``BoxRoom.render``), 8192 map points, ``MonoSLAM.process_batch`` in batches
+of 16 from frame 0, two-view initialisation included.  This lap and the
+stereo batch lap run with loop closing on, as ``bench.py`` runs them, and
+end with ``flush()``; they record ``loops_closed`` and their detections.
+``--mode mono_loop``: ``bench.py``'s 400-frame pendulum lap
+(``bench.py:215-309``), loop closing off and on, written to
+``tests/fixtures/mono_loop_lap.json`` (see :func:`main_mono_loop`).
+``--mode loop_correction``: one loop correction on a drifted map at the
+bench configuration (``scripts/loop_scaffold.py``), written to
+``tests/fixtures/loop_correction_full.json`` (see
+:func:`main_loop_correction`).
 
 Writes per-frame states, inlier counts and ``positions()``, and for the
 SLAM laps the keyframe and map-point counts, to a small JSON file (default
@@ -32,6 +41,8 @@ few of them 1 ulp otherwise, which moves edge pixels of the renders)::
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode stereo
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode stereo_batch
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode mono
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode mono_loop
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode loop_correction
 """
 
 from __future__ import annotations
@@ -58,6 +69,8 @@ FIXTURES = {
     "stereo_batch": ("stereo_batch_lap.json", 48),
     "mono": ("mono_slam_lap.json", 120),
     "mono_reloc": ("mono_reloc_lap.json", 120),
+    "mono_loop": ("mono_loop_lap.json", 400),
+    "loop_correction": ("loop_correction_full.json", 0),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -164,6 +177,8 @@ def main():
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--mode", choices=tuple(FIXTURES), default="rgbd")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--arms", default="loop_off,loop_on,loop_wide",
+                    help="--mode mono_loop: the arms to run")
     args = ap.parse_args()
     name, n_default = FIXTURES[args.mode]
     n = args.frames or n_default
@@ -173,6 +188,10 @@ def main():
         args.out = os.path.join(ROOT, "tests", "fixtures", name)
     if args.mode == "mono_reloc":
         return main_mono_reloc(args.out)
+    if args.mode == "mono_loop":
+        return main_mono_loop(args.out, n, tuple(args.arms.split(",")))
+    if args.mode == "loop_correction":
+        return main_loop_correction(args.out)
 
     import jax
 
@@ -188,7 +207,7 @@ def main():
         cfg = SlamConfig(
             camera=cam, width=W, height=H, n_features=1200,
             max_keyframes=64, max_map_points=8192,
-            local_window=5, kf_max_interval=10, enable_loop_closing=False,
+            local_window=5, kf_max_interval=10, enable_loop_closing=True,
         )
         room = BoxRoom(seed=0)
         poses = orbit_trajectory(n, forward=0.03, yaw0=0.45)
@@ -198,7 +217,8 @@ def main():
             camera=cam, width=W, height=H, n_features=1200, n_levels=8,
             scale_factor=1.2, bf=BASELINE * cam.fx, th_depth=45.0,
             max_keyframes=64, max_map_points=16384,
-            local_window=5, kf_max_interval=10, enable_loop_closing=False,
+            local_window=5, kf_max_interval=10,
+            enable_loop_closing=args.mode == "stereo_batch",
         )
         poses, lefts, rights, depths = lap_inputs(n)
     if mono:
@@ -244,6 +264,7 @@ def main():
         return out
 
     jtr.init_attempt_batch = recording_attempt
+    detections = record_detections()
     n_mp_frame0 = 0
     t0 = time.perf_counter()
     i = 0
@@ -261,6 +282,8 @@ def main():
             print(f"frame {rec.frame_id:3d} {rec.state:<16} inliers {rec.n_inliers:4d} "
                   f"keyframes {slam.n_kf} map points {slam.n_mp}", file=sys.stderr)
         i = j
+    if slam.cfg.enable_loop_closing:
+        slam.flush()
     wall = time.perf_counter() - t0
 
     est = slam.positions()
@@ -271,9 +294,10 @@ def main():
             "rgbd": "JAX RGBDSLAM, localisation mode, CPU",
             "stereo": "JAX StereoSLAM, full SLAM frame by frame, CPU",
             "stereo_batch": f"JAX StereoSLAM, process until initialised, then "
-                            f"process_batch in batches of {BATCH}, CPU",
+                            f"process_batch in batches of {BATCH}, loop closing on, flush() at "
+                            f"the end, CPU",
             "mono": f"JAX MonoSLAM, process_batch in batches of {BATCH} from frame 0, "
-                    f"loop closing off, CPU",
+                    f"loop closing on, flush() at the end, CPU",
         }[args.mode],
         "frames": n,
         "width": W, "height": H, "camera": list(CAM_PARAMS),
@@ -286,6 +310,9 @@ def main():
         "relocalised_frames": relocs,
         "rwc_f32": b64(np.stack([R for R, _ in poses]).astype("<f4")),
     }
+    if slam.cfg.enable_loop_closing:
+        out.update(loops_closed=int(slam.loop_closer.loops_closed if slam.loop_closer else 0),
+                   kf_inserted=int(slam.kf_inserted), **detections)
     if mono:
         kf_frames = sorted(int(f) for f in slam.kf_frame_ids if f >= 0)
         use = ate_frames(states, kf_frames[0], init_frames[0])
@@ -313,8 +340,308 @@ def main():
         f.write("\n")
     print(json.dumps({k: v for k, v in out.items()
                       if k not in ("states", "n_inliers", "positions", "ate_frames", "init_draws",
-                                   "rwc_f32")}))
+                                   "rwc_f32", *detections)}))
     print(f"wall {wall:.1f} s", file=sys.stderr)
+
+
+def _mat(a) -> list:
+    return np.asarray(a, np.float64).tolist()
+
+
+def record_detections() -> dict:
+    """Patch the JAX package's loop closer (in this process only) to record
+    every finished detection (the keyframe's slot and frame, the winners,
+    the consistency counts after it), every Sim(3) RANSAC call (slot,
+    candidate, the pair mask, the (128, 3) sets drawn from ``PRNGKey(slot)``
+    and the result), every ``sim3_refine`` call and every accepted loop.
+    Returns the dict the records go into."""
+    import jax
+
+    import orb_slam3_noted_tpu.optim.sim3_opt as jsim3opt
+    from orb_slam3_noted_tpu.pipeline import loop_closing as jlc
+
+    rec = {"detections": [], "sim3_ransac": [], "sim3_refine": [], "accepted": []}
+    cur = {}
+    finish_one, accept = jlc.LoopCloser._finish_one, jlc.LoopCloser._accept
+    pairs, ransac, refine = jlc._matched_point_pairs, jlc.sim3_ransac, jsim3opt.sim3_refine
+
+    def rec_finish_one(self, slam, slot, slots_np, covis_np, kf_valid):
+        fids = getattr(slam, "kf_frame_ids", None)
+        cur["slot"] = int(slot)
+        out = finish_one(self, slam, slot, slots_np, covis_np, kf_valid)
+        rec["detections"].append({
+            "slot": int(slot), "frame_id": int(fids[slot]) if fids is not None else int(slot),
+            "winners": [int(s) for s in np.asarray(slots_np) if s >= 0],
+            "counts": [int(c) for _, c in self.consistent_groups],
+            "pending": self.pending is not None, "closed": bool(out)})
+        return out
+
+    def rec_pairs(m, slot_cur, slot_cand):
+        cur["pair"] = (int(slot_cur), int(slot_cand))
+        return pairs(m, slot_cur, slot_cand)
+
+    def rec_ransac(x1, x2, valid, key, **kw):
+        res = ransac(x1, x2, valid, key, **kw)
+        v = np.asarray(valid)
+        sets = jax_draws_1d(v, key, 3, 128)
+        rec["sim3_ransac"].append({
+            "slot": cur["pair"][0], "cand": cur["pair"][1], "seed": int(np.asarray(key)[1]),
+            "n": int(v.shape[0]), "valid": b64(np.packbits(v)), "n_valid": int(v.sum()),
+            "shape": list(sets.shape), "sets": b64(sets.astype("<i2")),
+            "success": bool(res.success), "n_inliers": int(res.n_inliers),
+            "R": _mat(res.R), "t": _mat(res.t), "s": float(res.s)})
+        return res
+
+    def rec_refine(m, slot_cur, slot_cand, R0, t0, s0, cam, cfg, **kw):
+        res = refine(m, slot_cur, slot_cand, R0, t0, s0, cam, cfg, **kw)
+        fids = np.asarray(m.kf_frame_id)
+        rec["sim3_refine"].append({
+            "slot": int(slot_cur), "cand": int(slot_cand), "seeded": kw.get("seed_idx") is not None,
+            "frames": [int(fids[slot_cur]), int(fids[slot_cand])],
+            "n_inliers": int(res.n_inliers), "n_matches": int(res.n_matches),
+            "R": _mat(res.R), "t": _mat(res.t), "s": float(res.s)})
+        return res
+
+    def rec_accept(self, slam, slot, cand, res, covis=None):
+        fids = getattr(slam, "kf_frame_ids", None)
+        rec["accepted"].append({
+            "slot": int(slot), "cand": int(cand),
+            "frames": [int(fids[slot]), int(fids[cand])] if fids is not None else None,
+            "s": float(res.s)})
+        return accept(self, slam, slot, cand, res, covis)
+
+    jlc.LoopCloser._finish_one, jlc.LoopCloser._accept = rec_finish_one, rec_accept
+    jlc._matched_point_pairs, jlc.sim3_ransac, jsim3opt.sim3_refine = (
+        rec_pairs, rec_ransac, rec_refine)
+    assert jax is not None
+    return rec
+
+
+# the wide arm of the loop lap: the camera swings 1.4 m each way instead of
+# 0.7 m (scripts/torch_port_loop_probe.py --amplitude 1.4), and the JAX
+# package closes a loop on it through process_batch (at frame 166, back to
+# frame 7); on bench.py's lap it finds the start again by projection and
+# closes none
+WIDE_AMPLITUDE = 1.4
+
+
+def pendulum_poses(n: int, amplitude: float = 0.7) -> list:
+    """``bench.py``'s 400-frame accuracy lap (``pend_pose``,
+    ``bench.py:232-250``): two excursions of ``amplitude`` m, each returning
+    to the start, the camera looking away and back; (Rwc float32 from JAX
+    ``so3.exp``, twc float64)."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+
+    out = []
+    for i in range(n):
+        s = i / n
+        ph = 2 * np.pi * 2 * s
+        twc = np.array([amplitude * np.sin(ph), 0.10 * np.sin(2 * np.pi * 3.1 * s),
+                        0.18 * np.sin(ph + 1.2)])
+        yaw = 0.45 + 0.70 * np.sin(ph + 0.4)
+        pitch = 0.05 * np.sin(2 * np.pi * 1.3 * s)
+        out.append((np.asarray(so3.exp(jnp.asarray([pitch, yaw, 0.0]))), twc))
+    return out
+
+
+def main_mono_loop(out_path: str, n: int, arms=("loop_off", "loop_on", "loop_wide")):
+    """``bench.py``'s accuracy lap in both arms, and its wide form with loop
+    closing on (``loop_wide``: ``WIDE_AMPLITUDE``): ``MonoSLAM.process_batch``
+    in batches of 16 with ``bench.py``'s keyframe override (a keyframe at
+    least every 8 tracked frames), ``flush()`` at the end; the loop-off arm
+    replaces ``_maybe_close_loop`` by ``_register_reloc_kf``
+    (``bench.py:254``).  Per arm: states, inliers, positions, the two-view
+    draws, every detection, Sim(3) RANSAC and refine call, the loops closed
+    (the accepted pairs' slots and frame ids), keyframe insertions,
+    ``bench.py``'s ATE (Sim(3)-aligned over the OK frames) and the batch wall
+    times; the wide arm also its camera poses.  Arms not asked for keep
+    their record in an existing ``out_path``."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.pipeline import tracking as jtr
+    from orb_slam3_noted_tpu.pipeline.system import MonoSLAM
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom
+
+    cam = Camera(PINHOLE, CAM_PARAMS)
+    cfg = SlamConfig(camera=cam, width=W, height=H, n_features=1200, max_keyframes=64,
+                     max_map_points=8192, local_window=5, kf_max_interval=10,
+                     enable_loop_closing=True)
+    room = BoxRoom(seed=0)
+    attempt = jtr.init_attempt_batch
+    loop_rec = record_detections()
+
+    def lap(amplitude):
+        poses = pendulum_poses(n, amplitude)
+        return poses, [room.render(R, t, cam.params, W, H).astype(np.uint8) for R, t in poses]
+
+    def run(loop_on: bool, poses, frames) -> dict:
+        gt = np.stack([t for _, t in poses])
+        init_draws, init_frames = [], []
+        for v in loop_rec.values():
+            v.clear()
+
+        def recording_attempt(ref, cand, cam_, key):
+            out = attempt(ref, cand, cam_, key)
+            matched = np.asarray(out[6]) >= 0
+            sets = jax_minimal_sets(matched, key)
+            init_draws.append({"seed": int(np.asarray(key)[1]), "shape": list(sets.shape),
+                               "sets": b64(sets.astype("<i2")), "n": int(matched.shape[1]),
+                               "matched": b64(np.packbits(matched, axis=-1))})
+            return out
+
+        jtr.init_attempt_batch = recording_attempt
+        s = MonoSLAM(cfg)
+        if not loop_on:
+            s._maybe_close_loop = lambda slot, feats: s._register_reloc_kf(slot)
+        base_need, finish = s._need_new_kf, s._finish_initialize
+
+        def need_kf(n_inl, **kw):
+            if base_need(n_inl, **kw):
+                return True
+            return s.frames_since_kf >= 8 and n_inl > 15 and s._can_insert_kf()
+
+        def finish_initialize(feats, frame_id, *rest):
+            finish(feats, frame_id, *rest)
+            if s.state == "OK":
+                init_frames.append(int(frame_id))
+
+        s._need_new_kf, s._finish_initialize = need_kf, finish_initialize
+        walls = []
+        t0 = time.perf_counter()
+        for i in range(0, len(frames), BATCH):
+            j = min(i + BATCH, len(frames))
+            tb = time.perf_counter()
+            s.process_batch(frames[i:j], list(range(i, j)))
+            walls.append(time.perf_counter() - tb)
+            print(f"[{'on' if loop_on else 'off'}] frames {i}-{j - 1}: keyframes {s.n_kf}, "
+                  f"inserted {s.kf_inserted}, last {s.trajectory[-1].state}", file=sys.stderr)
+        s.flush()
+        wall = time.perf_counter() - t0
+        states = [r.state for r in s.trajectory]
+        idx = [k for k, st in enumerate(states) if st == "OK"]
+        est = s.positions()
+        ate, _, (_, _, scale) = ate_rmse(est[idx], gt[[s.trajectory[k].frame_id for k in idx]],
+                                         with_scale=True)
+        arm = {
+            "states": states, "n_inliers": [int(r.n_inliers) for r in s.trajectory],
+            "positions": est.astype(float).tolist(), "tracked": len(idx),
+            "init_frame": init_frames[0], "ate_m": float(ate), "ate_scale": float(scale),
+            "n_kf": int(s.n_kf), "kf_inserted": int(s.kf_inserted), "n_mp": int(s.n_mp),
+            "kf_frame_ids": sorted(int(f) for f in s.kf_frame_ids if f >= 0),
+            "loops_closed": int(s.loop_closer.loops_closed) if s.loop_closer else 0,
+            "init_draws": init_draws, "batch_wall_s": walls, "wall_s": wall,
+        }
+        arm.update({k: list(v) for k, v in loop_rec.items()})
+        print(json.dumps({k: v for k, v in arm.items() if not isinstance(v, list)}),
+              file=sys.stderr)
+        return arm
+
+    out = {
+        "source": "JAX MonoSLAM, bench.py's 400-frame accuracy lap (bench.py:215-309): "
+                  f"process_batch in batches of {BATCH}, bench.py's keyframe override, flush() "
+                  "at the end, loop closing off (_register_reloc_kf) and on, and on with "
+                  f"{WIDE_AMPLITUDE} m excursions (loop_wide, its own poses), CPU",
+        "frames": n, "width": W, "height": H, "camera": list(CAM_PARAMS), "n_features": 1200,
+        "room_seed": 0, "max_map_points": 8192, "max_keyframes": 64, "batch": BATCH,
+        "rwc_f32": b64(np.stack([R for R, _ in pendulum_poses(n)]).astype("<f4")),
+        "twc_f64": b64(np.stack([t for _, t in pendulum_poses(n)]).astype("<f8")),
+    }
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            old = json.load(f)
+        out.update({k: v for k, v in old.items() if k.startswith("loop_")})
+    poses, frames = lap(0.7)
+    for arm in arms:
+        if arm == "loop_wide":
+            wide, wide_frames = lap(WIDE_AMPLITUDE)
+            out[arm] = run(True, wide, wide_frames)
+            out[arm].update(amplitude=WIDE_AMPLITUDE, frames=n,
+                            rwc_f32=b64(np.stack([R for R, _ in wide]).astype("<f4")),
+                            twc_f64=b64(np.stack([t for _, t in wide]).astype("<f8")))
+        else:
+            out[arm] = run(arm == "loop_on", poses, frames)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({arm: {k: v for k, v in out[arm].items()
+                            if not isinstance(v, (list, str))} for arm in arms}))
+
+
+def main_loop_correction(out_path: str):
+    """One loop correction at the bench configuration: the drifted map of
+    ``scripts/loop_scaffold.py`` (64 keyframes, 1200 features a keyframe,
+    2400 map points, the tail 0.3/-0.1/0.2 m from keyframe 0), the 32k-word
+    vocabulary, ``LoopCloser.on_keyframe`` on the tail with camera context
+    (RANSAC, ``sim3_refine``, the pose graph, the deferred fuse and the
+    time-sliced GBA), then ``finish_gba``.  Records the RANSAC draws, the
+    accepted pair, RANSAC's and the refine's (R, t, s), the keyframe poses
+    and points after the pose graph and after GBA."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import loop_scaffold as LS
+
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.pipeline import map_state as MS
+    from orb_slam3_noted_tpu.pipeline.loop_closing import LoopCloser
+    from orb_slam3_noted_tpu.place.pretrained import load_default_vocabulary
+
+    full = LS.FULL
+    inp = LS.drifted_map_inputs(seed=0, baseline=LS.BASELINE, **full)
+    cfg = SlamConfig(camera=Camera(PINHOLE, full["cam"]), width=full["width"],
+                     height=full["height"], n_features=full["n_pts"],
+                     max_keyframes=full["max_keyframes"], max_map_points=full["max_map_points"])
+    m = LS.build_map(MS, MS.empty_map(cfg), inp, jnp.asarray)
+    vocab, idf = load_default_vocabulary()
+    lc = LoopCloser(vocab, cfg.max_keyframes, min_inliers=20, consistency_th=0, idf=idf)
+    tail = inp["n_kf"] - 1
+    for k in range(tail):
+        _, bow = lc.db.compute_bow(m.kf_desc[k], m.kf_feat_valid[k])
+        lc.db.add(k, bow)
+    rec = record_detections()
+    slam = LS.ScaffoldSlam(m, inp["n_kf"], cfg)
+    t0 = time.perf_counter()
+    closed = lc.on_keyframe(slam, tail)
+    t_correct = time.perf_counter() - t0
+    graph = jax.device_get(slam.m)
+    lc.finish_gba(slam)
+    t_total = time.perf_counter() - t0
+    final = jax.device_get(slam.m)
+    err, before = LS.corrected_point_errors(final.mp_pos, inp)
+    err_graph, _ = LS.corrected_point_errors(graph.mp_pos, inp)
+    n2 = 2 * inp["n_pts"]
+    f32 = lambda a: b64(np.asarray(a, "<f4"))
+    out = {
+        "source": "JAX LoopCloser.on_keyframe with camera context, then finish_gba, CPU; "
+                  "scripts/loop_scaffold.py FULL, seed 0, baseline "
+                  f"{list(LS.BASELINE)} m, 32k-word vocabulary, consistency_th 0, "
+                  "min_inliers 20",
+        "seed": 0, **{k: v for k, v in full.items() if k != "cam"}, "camera": list(full["cam"]),
+        "baseline": list(LS.BASELINE), "closed": bool(closed), "loops_closed": lc.loops_closed,
+        "accepted": rec["accepted"], "detections": rec["detections"],
+        "sim3_ransac": rec["sim3_ransac"], "sim3_refine": rec["sim3_refine"],
+        "kf_Rcw_graph": f32(graph.kf_Rcw), "kf_tcw_graph": f32(graph.kf_tcw),
+        "mp_pos_graph": f32(graph.mp_pos[:n2]),
+        "kf_Rcw": f32(final.kf_Rcw), "kf_tcw": f32(final.kf_tcw), "mp_pos": f32(final.mp_pos[:n2]),
+        "median_err_m": float(np.median(err)), "median_err_graph_m": float(np.median(err_graph)),
+        "median_drift_m": float(np.median(before)),
+        "wall_correct_s": t_correct, "wall_total_s": t_total,
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("kf_Rcw", "kf_tcw", "mp_pos", "kf_Rcw_graph", "kf_tcw_graph",
+                                   "mp_pos_graph", "sim3_ransac")}))
 
 
 def main_mono_reloc(out_path: str):

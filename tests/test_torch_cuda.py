@@ -598,3 +598,146 @@ def test_pnp_on_card_matches_cpu(dev):
     assert abs(int(card.n_inliers) - int(cpu.n_inliers)) <= 1
     torch.testing.assert_close(card.Rcw.cpu(), cpu.Rcw, atol=1e-3, rtol=0)
     torch.testing.assert_close(card.tcw.cpu(), cpu.tcw, atol=1e-3, rtol=0)
+
+
+def _scaffold():
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                    "scripts"))
+    import loop_scaffold
+
+    return loop_scaffold
+
+
+def _as_tensor(a):
+    a = np.asarray(a)
+    return torch.from_numpy(np.ascontiguousarray(a.view(np.int32) if a.dtype == np.uint32 else a))
+
+
+def _loop_graph(K=30):
+    """A keyframe circle with exact odometry edges, a loop edge and estimates
+    integrated with noise and 1% scale creep a step (``tests/test_loop_opt.py``)."""
+    from orb_slam3_noted_tpu_torch.geometry import sim3
+    from orb_slam3_noted_tpu_torch.optim.pose_graph import Sim3Edges
+
+    rng = np.random.default_rng(0)
+    a = 2 * np.pi * np.arange(K) / K
+    xi_wk = np.zeros((K, 7), np.float32)
+    xi_wk[:, 4] = a
+    Rw, _, _ = sim3.exp(torch.from_numpy(xi_wk))
+    twk = torch.from_numpy(np.stack([2 * np.sin(a), 0 * a, 2 - 2 * np.cos(a)], 1).astype(np.float32))
+    Rg = Rw.transpose(1, 2)
+    tg = -torch.einsum("kij,kj->ki", Rg, twk)
+    sg = torch.ones(K)
+    i = torch.tensor(list(range(K - 1)) + [K - 1])
+    j = torch.tensor(list(range(1, K)) + [0])
+    eR, et, es = sim3.compose((Rg[j], tg[j], sg[j]), sim3.inverse((Rg[i], tg[i], sg[i])))
+    edges = Sim3Edges(i=i.int(), j=j.int(), R=eR, t=et, s=es, weight=torch.ones(K),
+                      valid=torch.ones(K, dtype=torch.bool))
+    R, t, s = [Rg[0]], [tg[0]], [torch.ones(())]
+    for k in range(K - 1):
+        noise = sim3.exp(torch.from_numpy(np.concatenate(
+            [rng.normal(0, 0.02, 3), rng.normal(0, 0.01, 3), [0.01]]).astype(np.float32)))
+        Sn = sim3.compose(noise, sim3.compose((eR[k], et[k], es[k]), (R[-1], t[-1], s[-1])))
+        R.append(Sn[0])
+        t.append(Sn[1])
+        s.append(Sn[2])
+    return edges, (torch.stack(R), torch.stack(t), torch.stack(s))
+
+
+def test_pose_graph_on_card_matches_cpu(dev):
+    """The Sim(3) pose graph on the card and on the CPU: poses within 1e-4
+    (rotation entries, scale) and 1e-3 m; two runs on the card bit for bit
+    the same (its normal equations are one-hot products, in a fixed order)."""
+    from orb_slam3_noted_tpu_torch.optim.pose_graph import optimize_pose_graph_sim3
+
+    edges, est = _loop_graph()
+    fixed = torch.zeros(len(est[0]), dtype=torch.bool)
+    fixed[0] = True
+    cpu = optimize_pose_graph_sim3(*est, edges, fixed)
+    to = lambda x: type(x)(*(f.to(dev) for f in x)) if isinstance(x, tuple) and hasattr(
+        x, "_fields") else tuple(f.to(dev) for f in x)
+    card = [optimize_pose_graph_sim3(*to(est), to(edges), fixed.to(dev)) for _ in range(2)]
+    for a, b, tol in zip(card[0][:3], cpu[:3], (1e-4, 1e-3, 1e-4)):
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0)
+    for a, b in zip(card[0], card[1]):
+        assert torch.equal(a, b)
+    assert float(card[0][3]) < 1e-3
+
+
+def test_gba_step_on_card_matches_cpu(dev):
+    """One LM step of the matrix-free GBA (48 PCG iterations) on a stereo
+    map, on the card and on the CPU: poses and points within 1e-4 (m).  Its
+    sums run in a fixed order (pose side one-hot products, landmark side
+    segment sums over the observations sorted by point), so five runs on the
+    card give the same step bit for bit (with ``index_add_``'s atomics they
+    spread by 7e-6 m to 1.2e-5 m on an H100).  Prints the spread."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.optim import gba
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+
+    LS = _scaffold()
+    inp = LS.stereo_map_inputs(K=8, M=600)
+    cfg = SlamConfig(camera=Camera(PINHOLE, LS.PIN), width=752, height=480, n_features=600,
+                     max_keyframes=10, max_map_points=1024, bf=inp["bf"])
+    m = LS.build_stereo_map(MS, MS.empty_map(cfg, device=torch.device("cpu")), inp, _as_tensor)
+
+    def step(mm):
+        prob = gba.full_map_problem(mm, cfg)
+        lam = torch.tensor(1e-4, device=mm.mp_pos.device)
+        return gba.gba_step(cfg.camera, prob.Rcw, prob.tcw, prob.points, prob.obs, prob,
+                            prob.obs.valid, True, lam, bf=cfg.bf, cg_iters=48)
+
+    cpu = step(m)
+    m_dev = MS.MapArrays(*(f.to(dev) for f in m))
+    runs = [step(m_dev) for _ in range(5)]
+    spread_pts = max(float((r[2] - runs[0][2]).abs().max()) for r in runs)
+    spread_pose = max(float((r[1] - runs[0][1]).abs().max()) for r in runs)
+    vs_cpu = [float((a.cpu() - b).abs().max()) for a, b in zip(runs[0][:3], cpu[:3])]
+    print(f"GBA step, 5 runs on the card: landmark spread {spread_pts:.3g} m, pose spread "
+          f"{spread_pose:.3g} m; card vs CPU max |diff| R {vs_cpu[0]:.3g}, t {vs_cpu[1]:.3g} m, "
+          f"points {vs_cpu[2]:.3g} m; cost {float(runs[0][4]):.6g} (CPU {float(cpu[4]):.6g})")
+    assert max(vs_cpu) <= 1e-4, vs_cpu
+    assert spread_pts == 0.0 and spread_pose == 0.0
+
+
+def test_sim3_refine_on_card_matches_cpu(dev):
+    """The verification ladder on the full-width drifted map (1200 features a
+    keyframe, the tail 0.3/-0.1/0.2 m from keyframe 0): pairs, RANSAC on the
+    same minimal sets, ``sim3_refine``, on the card and on the CPU: R and s
+    within 1e-4, t within 1e-3 m, inliers within 1."""
+    from orb_slam3_noted_tpu_torch.geometry.sim3_solver import sim3_ransac
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.optim.sim3_opt import sim3_refine
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+    from orb_slam3_noted_tpu_torch.pipeline.loop_closing import LoopCloser, _matched_point_pairs
+
+    LS = _scaffold()
+    full = LS.FULL
+    inp = LS.drifted_map_inputs(seed=0, baseline=LS.BASELINE, **full)
+    cfg = SlamConfig(camera=Camera(PINHOLE, full["cam"]), width=full["width"],
+                     height=full["height"], n_features=full["n_pts"],
+                     max_keyframes=full["max_keyframes"], max_map_points=full["max_map_points"])
+    tail = inp["n_kf"] - 1
+    cpu_dev = torch.device("cpu")
+    vocab = np.random.default_rng(0).integers(0, 2 ** 32, size=(64, 8), dtype=np.uint32)
+    sets = LoopCloser(vocab, 4, device=cpu_dev)._sim3_sets(
+        _matched_point_pairs(LS.build_map(MS, MS.empty_map(cfg, device=cpu_dev), inp,
+                                          _as_tensor), tail, 0)[2], tail)
+    out = []
+    for d in (cpu_dev, dev):
+        m = LS.build_map(MS, MS.empty_map(cfg, device=d), inp, lambda a: _as_tensor(a).to(d))
+        x_cand, x_cur, ok, idx = _matched_point_pairs(m, tail, 0)
+        res = sim3_ransac(x_cand, x_cur, ok, sets.to(d))
+        ref = sim3_refine(m, tail, 0, res.R, res.t, res.s, cfg.camera, cfg, seed_idx=idx,
+                          seed_ok=ok & res.inliers)
+        out.append((res, ref))
+    (rc, fc), (rg, fg) = out
+    assert int(rc.n_inliers) == int(rg.n_inliers.cpu()) == full["n_pts"]
+    for a, b, tol in ((fg.R, fc.R, 1e-4), (fg.s, fc.s, 1e-4), (fg.t, fc.t, 1e-3)):
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0)
+    assert abs(int(fg.n_inliers.cpu()) - int(fc.n_inliers)) <= 1
+    assert abs(float(fc.s) - LS.DRIFT_SCALE) < 1e-3

@@ -61,9 +61,12 @@ def test_port_names_neither_jax_nor_the_jax_package():
     profile scripts, by their import statements (the stereo matcher, the
     mapper, the windowed BA and the two-view solver included)."""
     files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(ROOT, "scripts", n) for n in ("torch_port_bench.py", "torch_port_profile_lap.py")]
+        os.path.join(ROOT, "scripts", n) for n in ("torch_port_bench.py", "torch_port_profile_lap.py",
+                                                   "loop_scaffold.py", "torch_port_segsum_ab.py")]
     assert {"stereo.py", "triangulation.py", "window_ba.py", "twoview.py", "horn.py",
-            "evaluation.py", "trajectory.py"} <= {os.path.basename(f) for f in files}
+            "evaluation.py", "trajectory.py", "sim3.py", "sim3_solver.py", "sim3_opt.py",
+            "pose_graph.py", "ba.py", "gba.py", "loop_closing.py"} <= {
+                os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -88,8 +91,10 @@ def test_port_never_asks_for_a_gpu_or_catches_a_launch():
         with open(path) as f:
             src = f.read()
         assert "is_available" not in src, path
-    paths = _sources("ops", "*.py") + _sources("geometry", "*.py") + _sources("pipeline", "*.py")
-    assert {"twoview.py", "system.py", "tracking.py"} <= {os.path.basename(p) for p in paths}
+    paths = (_sources("ops", "*.py") + _sources("geometry", "*.py") + _sources("pipeline", "*.py")
+             + _sources("optim", "*.py"))
+    assert {"twoview.py", "system.py", "tracking.py", "loop_closing.py", "gba.py"} <= {
+        os.path.basename(p) for p in paths}
     for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -120,6 +125,34 @@ def test_facades_default_to_the_cuda_device(facade, monkeypatch):
     assert seen == [torch.device("cuda")]
     with pytest.raises(Stop):
         getattr(system, facade)(SlamConfig(enable_loop_closing=False), device="cpu")
+    assert seen[1] == torch.device("cpu")
+
+
+def test_loop_closer_defaults_to_the_cuda_device(monkeypatch):
+    """The loop closer's database goes to ``cuda`` unless a device is named,
+    and a facade with loop closing on hands it its own device."""
+    import numpy as np
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import loop_closing, system
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def database(vocab, max_keyframes, idf=None, device=None):
+        seen.append(torch.device("cuda" if device is None else device))
+        raise Stop
+
+    monkeypatch.setattr(loop_closing, "KeyFrameDatabase", database)
+    with pytest.raises(Stop):
+        loop_closing.LoopCloser(np.zeros((4, 8), np.uint32), 8)
+    assert seen == [torch.device("cuda")]
+    slam = system.MonoSLAM(SlamConfig(enable_loop_closing=True), device="cpu")
+    with pytest.raises(Stop):
+        slam._maybe_build_loop_closer(None)
     assert seen[1] == torch.device("cpu")
 
 

@@ -614,9 +614,20 @@ def test_compaction_and_reset(frames):
     assert ts.state == OK and ts.n_kf == 1
 
 
-def test_unported_entry_points_name_their_step():
-    with pytest.raises(NotImplementedError, match="next steps 2"):
-        StereoSLAM(tcfg(enable_loop_closing=True), device=CPU)
+def test_unported_entry_points_name_their_step(frames):
+    # loop closing (step 2b) is ported: with it on, a stereo system builds,
+    # and a keyframe's detection is queued at insertion and finished at the
+    # next frame boundary; only a correction of an inertial map raises, naming
+    # step 3
+    lc = StereoSLAM(tcfg(enable_loop_closing=True), device=CPU)
+    left, right, _ = frames[1][0]
+    lc.process(left, right, 0)
+    lc._maybe_close_loop(0, None)
+    assert lc._pending_loops and lc.process_batch([(left, right)], [1]) is not None
+    assert not lc._pending_loops and bool(lc.loop_closer.db.present[0])
+    lc.imu_stage = 1
+    with pytest.raises(NotImplementedError, match="next steps 3"):
+        lc.loop_closer._correct(lc, 0, 0, None)
     ts = StereoSLAM(tcfg(), device=CPU)
     assert ts.process_batch([], []) is None  # batch mode is ported (step 1)
     # relocalisation (step 2a) is ported: no result without a database, and a

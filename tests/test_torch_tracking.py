@@ -271,8 +271,22 @@ def test_unported_paths_raise(frames):
     mono = MonoSLAM(ts.cfg, device=cpu)
     rec = mono.process(frames[0][0], 0)
     assert rec.state == "NOT_INITIALIZED" and mono.ref_frame_id == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True), device=cpu)
+    # loop closing is ported (step 2b): an RGB-D system with it on builds,
+    # queues each keyframe's detection on the device and finishes it at
+    # flush(); a correction of an inertial map raises naming step 3
+    lc = RGBDSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True), device=cpu)
+    assert lc.loop_closer is None
+    lc.process(frames[0][0], frames[0][1], 0)
+    lc._maybe_close_loop(0, None)
+    assert len(lc._pending_loops) == 1 and lc.loop_closer.device == cpu
+    assert lc.flush() is lc and not lc._pending_loops
+    assert lc.loop_closer.db.present[0] and lc.loop_closer.loops_closed == 0
+    assert lc._reloc_database() is lc.loop_closer.db
+    lc.imu_stage = 1
+    with pytest.raises(NotImplementedError, match="next steps 3"):
+        lc.loop_closer._correct(lc, 0, 0, None)
+    assert StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True),
+                      device=cpu).loop_closer is None
     # relocalisation is ported: without a database there is no result, and a
     # database is queried (the full candidate policy, with covisibility)
     assert ts.reloc_db is None and ts._try_relocalize(None, 0) is None
