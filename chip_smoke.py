@@ -104,8 +104,27 @@ Phases, each of which raises on failure (exit code 1, no result line):
    scale, the corrected points, the keyframe poses); ms per step with the
    card synchronised, the first correction apart from the rest, and the
    kernel launches of one correction;
+11. visual-inertial SLAM.  (a) ``bench.py``'s stereo-inertial lap
+   (``bench.py:146-212``): 240 pairs of ``smooth_pose`` at 20 fps rendered
+   from the JAX run's camera poses and staged on the card once, the JAX
+   run's 200 Hz IMU samples, ``cfg_vi``'s values,
+   ``StereoInertialSLAM.process_batch`` in batches of 16 from frame 0, loop
+   closing on, ``flush()`` at the end, held to
+   ``tests/fixtures/stereo_inertial_lap.json``: tracked frames, the final
+   ``imu_stage`` and the batch each stage is reached in, SE(3)-aligned ATE
+   and the Sim(3) scale, the first IMU init's gravity direction, keyframe
+   insertions, loops closed, K1-K4 once per extraction dispatch; it prints
+   ``bench.py``'s ``stereo_inertial_tracked_fps_752x480_1200feat`` line
+   (this first pass), batch latency (p50, max), the final biases beside
+   the JAX run's and host ms by stage (``vi_frontend_batch``,
+   ``vi_track_batch``, ``insert_keyframe``, ``chain_ba``, ``imu_init``,
+   ``loop_drain``).  (b) one 4-DoF loop correction at full width: the
+   drifted 64-keyframe map of ``scripts/loop_scaffold.py`` with the
+   essential graph of an inertial map through ``optimize_pose_graph_4dof``,
+   held to ``tests/fixtures/loop_4dof_full.json`` (poses, every keyframe's
+   roll and pitch unchanged), ms per call, the first apart;
 
-after each of the laps 4, 5, 7, 8, 9 and 10a, every kernel against its plain
+after each of the laps 4, 5, 7, 8, 9, 10a and 11a, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -134,6 +153,8 @@ STEREO_BATCH_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_batch_lap
 RELOC_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mono_reloc_lap.json")
 LOOP_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "mono_loop_lap.json")
 CORRECTION_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "loop_correction_full.json")
+SI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_inertial_lap.json")
+FOURDOF_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "loop_4dof_full.json")
 
 W, H = 752, 480
 CAM_PARAMS = (458.654, 457.296, 367.215, 248.375)
@@ -191,6 +212,19 @@ SIM3_MIN_INLIERS = 20  # LoopCloser.sim3_min_inliers
 # 1e-3 m of the truth, keyframe poses within 1e-3 (m) of the JAX run's
 CORR_S_TOL, CORR_POINT_M, CORR_POSE_TOL = 1e-3, 1e-3, 1e-3
 CORR_RUNS = 3  # corrections timed: the first apart from the rest
+# bench.py's stereo-inertial lap against the JAX run: tracked >= JAX - 3, the
+# final imu_stage equal, each stage reached within one batch of the JAX
+# run's, SE(3)-aligned ATE <= 2 x JAX + 2 mm and the Sim(3) scale within
+# 0.05 of the JAX run's, the first IMU init's gravity within 1 degree of
+# the JAX run's, keyframe insertions +-4, loops closed equal
+SI_FRAMES = 240
+SI_TRACKED_MARGIN, SI_STAGE_FRAMES, SI_KF_MARGIN = 3, BATCH, 4
+SI_SCALE_TOL, SI_GRAVITY_DEG = 0.05, 1.0
+# one 4-DoF loop correction at full width against the JAX run: poses within
+# 1e-4 (m, and rotation entries), every keyframe's roll and pitch unchanged
+# to 1e-5 rad
+FOURDOF_TOL, FOURDOF_TILT = 1e-4, 1e-5
+FOURDOF_RUNS = 3
 
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here is float32 or integer arithmetic)
@@ -1909,6 +1943,268 @@ def run_loop_correction(ref: dict, dev, smi) -> tuple[dict, dict]:
     return launches, meas
 
 
+# ---------------------------------------------------------------------------
+# phase 11: visual-inertial SLAM
+
+def b64_array(text: str, dtype: str, shape) -> np.ndarray:
+    import base64
+
+    return np.frombuffer(base64.b64decode(text), dtype).reshape(shape).copy()
+
+
+def si_config(ref: dict):
+    """``bench.py``'s stereo-inertial configuration (``cfg_vi``), as the
+    fixture stores it."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+
+    return SlamConfig(camera=Camera(PINHOLE, CAM_PARAMS), bf=ref["bf"], **ref["config"])
+
+
+def si_inputs(ref: dict):
+    """(camera centres (n, 3), frame times, [(left, right) uint8], the IMU
+    chunk of each batch) of ``bench.py``'s stereo-inertial lap: rendered
+    from the JAX run's camera poses, with the JAX run's IMU samples (its
+    ``synth_imu`` rounds the gyro's finite difference in its own float32
+    ``so3.log``)."""
+    n = ref["frames"]
+    rwc = b64_array(ref["rwc_f32"], "<f4", (n, 3, 3))
+    twc = b64_array(ref["twc_f64"], "<f8", (n, 3))
+    pairs = [(a, b) for a, b, _ in render([("stereo", R, t) for R, t in zip(rwc, twc)])]
+    chunks = [tuple(b64_array(c[k], "<f8", (c["n"], 3) if k != "ts" else (c["n"],))
+                    for k in ("acc", "gyr", "ts")) for c in ref["imu"]]
+    return twc, [k / ref["config"]["fps"] for k in range(n)], pairs, chunks
+
+
+class StageClock:
+    """Host milliseconds of the stereo-inertial facade's stages over a lap:
+    module functions and instance methods wrapped in place (restored by
+    ``restore``); the card is not synchronised inside, so a stage's time is
+    its host path (enqueue plus any copy it waits for)."""
+
+    def __init__(self):
+        self.ms, self.n, self.undo = {}, {}, []
+
+    def wrap(self, owner, attr: str, name: str):
+        fn = getattr(owner, attr)
+        self.ms[name], self.n[name] = 0.0, 0
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.ms[name] += (time.perf_counter() - t0) * 1e3
+                self.n[name] += 1
+
+        setattr(owner, attr, timed)
+        self.undo.append((owner, attr, fn))
+        return timed
+
+    def restore(self):
+        for owner, attr, fn in reversed(self.undo):
+            setattr(owner, attr, fn)
+
+    def summary(self) -> dict:
+        return {k: {"n": self.n[k], "host_ms": round(self.ms[k], 3)} for k in self.ms}
+
+
+def run_si_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
+    """``bench.py``'s stereo-inertial lap (``bench.py:146-212``):
+    ``StereoInertialSLAM.process_batch`` in batches of 16 from frame 0 with
+    each batch's IMU chunk, loop closing on, ``flush()`` at the end, frames
+    staged on the card once; held to the JAX run (``SI_*``).  Returns
+    (launch counts, measurements)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline import inertial_system as IS
+    from orb_slam3_noted_tpu_torch.pipeline import loop_closing as LC
+    from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    t0 = time.perf_counter()
+    twc, times, pairs, chunks = si_inputs(ref)
+    n = len(pairs)
+    log(f"[si] rendered {n} stereo pairs in {time.perf_counter() - t0:.1f} s")
+    staged = torch.from_numpy(np.stack([p[0] for p in pairs] + [p[1] for p in pairs])).to(dev)
+    frames = [(staged[i], staged[n + i]) for i in range(n)]
+    slam = IS.StereoInertialSLAM(si_config(ref), device=dev)
+    clock = StageClock()
+    clock.wrap(T, "stereo_frontend_batch", "vi_frontend_batch")
+    clock.wrap(IS, "vi_track_batch", "vi_track_batch")
+    clock.wrap(T, "insert_keyframe_step", "insert_keyframe")
+    clock.wrap(slam, "_chain_ba", "chain_ba")
+    clock.wrap(LC.LoopCloser, "finish_detect_many", "loop_drain")
+    inits = []
+    solve = IS.inertial_init
+
+    def recording_init(*args, **kw):
+        res = solve(*args, **kw)
+        inits.append({"stage": slam.imu_stage, "scale": float(res.scale),
+                      "g_world": res.g_world.cpu().numpy().astype(float).tolist()})
+        return res
+
+    IS.inertial_init = recording_init
+    clock.undo.append((IS, "inertial_init", solve))
+    clock.wrap(slam, "_try_imu_init", "imu_init")
+    count = DispatchCounter(slam, ("process",))
+    stage_frame, walls = {}, []
+    try:
+        ck.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c, s0 in enumerate(range(0, n, BATCH)):
+            s1 = min(s0 + BATCH, n)
+            a, g, ts = chunks[c]
+            tb = time.perf_counter()
+            slam.process_batch(frames[s0:s1], list(range(s0, s1)), ts=times[s0:s1], acc=a, gyr=g,
+                               imu_t=ts)
+            walls.append(time.perf_counter() - tb)
+            stage_frame.setdefault(str(slam.imu_stage), s1 - 1)
+        slam.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ck.launch_counts()
+    finally:
+        clock.restore()
+    states = [r.state for r in slam.trajectory]
+    est = slam.positions()
+    if len(states) != n or not np.all(np.isfinite(est)):
+        raise AssertionError(f"si lap: {len(states)} records for {n} frames, or not finite")
+    ok = np.asarray([st == "OK" for st in states])
+    ate_se3 = ate_rmse(est[ok], twc[ok], with_scale=False)[0]
+    ate_sim3, _, (_, _, scale) = ate_rmse(est[ok], twc[ok], with_scale=True)
+    lat = np.asarray(walls) * 1e3
+    dispatches = clock.n["vi_frontend_batch"] + count.n["process"]
+    stages = clock.summary()
+    meas = {
+        "tracked": int(ok.sum()), "imu_stage": slam.imu_stage, "stage_frame": stage_frame,
+        "inertial_init": inits, "ate_se3_m": float(ate_se3), "ate_sim3_m": float(ate_sim3),
+        "ate_sim3_scale": float(scale), "n_kf": slam.n_kf, "kf_inserted": slam.kf_inserted,
+        "n_mp": slam.n_mp, "loops_closed": slam.loop_closer.loops_closed if slam.loop_closer else 0,
+        "bias_bg": slam.bias.bg.cpu().numpy().astype(float).tolist(),
+        "bias_ba": slam.bias.ba.cpu().numpy().astype(float).tolist(),
+        "fps": n / wall, "wall_s": wall, "batch_ms_p50": float(np.median(lat)),
+        "batch_ms_max": float(lat.max()), "batch_ms": [round(x, 2) for x in lat.tolist()],
+        "stages": stages, "dispatches": dispatches, "card": smi,
+    }
+    log(f"[si] tracked {meas['tracked']}/{n} (JAX {ref['tracked']}), imu_stage {slam.imu_stage} "
+        f"(JAX {ref['imu_stage']}), stages reached {stage_frame} (JAX {ref['stage_frame']}), "
+        f"ATE SE(3) {ate_se3 * 1e3:.2f} mm (JAX {ref['ate_se3_m'] * 1e3:.2f}), Sim(3) "
+        f"{ate_sim3 * 1e3:.2f} mm at scale {scale:.4f} (JAX {ref['ate_sim3_scale']:.4f}), "
+        f"keyframe insertions {slam.kf_inserted} (JAX {ref['kf_inserted']}), map points "
+        f"{slam.n_mp} (JAX {ref['n_mp']}), loops {meas['loops_closed']} "
+        f"(JAX {ref['loops_closed']})")
+    log(f"[si] biases bg {meas['bias_bg']} ba {meas['bias_ba']} (JAX bg {ref['bias_bg']} "
+        f"ba {ref['bias_ba']})")
+    log(f"[si] {meas['fps']:.2f} frames/s over {n} frames ({wall:.2f} s), batch latency p50 "
+        f"{meas['batch_ms_p50']:.1f} ms, max {meas['batch_ms_max']:.1f} ms; host ms by stage "
+        f"{json.dumps(stages)}; {smi}")
+    log(f"[si] launches {launches}; extraction dispatches {dispatches}")
+    want = {"fast_candidates": dispatches, "gaussian_blur7": dispatches,
+            "brief_sample": dispatches, "sad_stereo": dispatches, "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"si lap: launch counts {launches}, expected {want}")
+    check_si_lap(meas, ref)
+    return launches, meas
+
+
+def _angle_deg(a, b) -> float:
+    a, b = (np.asarray(x, np.float64) / np.linalg.norm(x) for x in (a, b))
+    return float(np.degrees(2 * np.arcsin(min(np.linalg.norm(a - b) / 2, 1.0))))
+
+
+def check_si_lap(got: dict, ref: dict) -> None:
+    """The stereo-inertial lap against the JAX run's (``SI_*`` limits)."""
+    if got["tracked"] < ref["tracked"] - SI_TRACKED_MARGIN:
+        raise AssertionError(f"si lap: tracked {got['tracked']} < {ref['tracked']} - "
+                             f"{SI_TRACKED_MARGIN}")
+    if got["imu_stage"] != ref["imu_stage"]:
+        raise AssertionError(f"si lap: imu_stage {got['imu_stage']}, JAX {ref['imu_stage']}")
+    for stage, frame in ref["stage_frame"].items():
+        mine = got["stage_frame"].get(stage)
+        if mine is None or abs(mine - frame) > SI_STAGE_FRAMES:
+            raise AssertionError(f"si lap: stage {stage} reached after frame {mine}, JAX {frame}")
+    ate_max = 2.0 * ref["ate_se3_m"] + 0.002
+    if got["ate_se3_m"] > ate_max:
+        raise AssertionError(f"si lap: SE(3) ATE {got['ate_se3_m']:.5f} m > {ate_max:.5f} m")
+    if abs(got["ate_sim3_scale"] - ref["ate_sim3_scale"]) > SI_SCALE_TOL:
+        raise AssertionError(f"si lap: Sim(3) scale {got['ate_sim3_scale']:.4f}, JAX "
+                             f"{ref['ate_sim3_scale']:.4f}")
+    g_deg = _angle_deg(got["inertial_init"][0]["g_world"], ref["inertial_init"][0]["g_world"])
+    got["gravity_deg_vs_jax"] = g_deg
+    if g_deg > SI_GRAVITY_DEG:
+        raise AssertionError(f"si lap: first IMU init's gravity {g_deg:.3f} deg off the JAX run's")
+    if abs(got["kf_inserted"] - ref["kf_inserted"]) > SI_KF_MARGIN:
+        raise AssertionError(f"si lap: {got['kf_inserted']} keyframe insertions, JAX "
+                             f"{ref['kf_inserted']}")
+    if got["loops_closed"] != ref["loops_closed"]:
+        raise AssertionError(f"si lap: {got['loops_closed']} loops, JAX {ref['loops_closed']}")
+
+
+def si_metric_line(meas: dict) -> dict:
+    """``bench.py``'s stereo-inertial line for the port (this first pass:
+    the kernels' and solvers' first calls included)."""
+    return {"metric": "stereo_inertial_tracked_fps_752x480_1200feat",
+            "value": round(meas["fps"], 2), "unit": "frames/s",
+            "vs_baseline": round(meas["fps"] / 20.0, 3), "tracked_frames": meas["tracked"],
+            "n_frames": SI_FRAMES, "imu_stage": meas["imu_stage"], "pass": "first",
+            "card": meas["card"]}
+
+
+def run_4dof(ref: dict, dev, smi) -> tuple[dict, dict]:
+    """One 4-DoF loop correction at full width: the drifted 64-keyframe map
+    of ``scripts/loop_scaffold.py`` with the essential graph of an inertial
+    map (``inertial_loop_graph``) through ``optimize_pose_graph_4dof`` on the
+    card, held to the JAX run (``FOURDOF_*``); ms per call, the first apart.
+    Returns (launch counts, measurements)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.optim.pose_graph import SE3Edges, optimize_pose_graph_4dof
+
+    LS = _scaffold()
+    inp = LS.drifted_map_inputs(seed=0, baseline=LS.BASELINE, **LS.FULL)
+    gr = LS.inertial_loop_graph(inp)
+    E = len(gr["i"])
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    edges = SE3Edges(t(gr["i"]), t(gr["j"]), t(gr["eR"]), t(gr["et"]), t(gr["weight"]),
+                     torch.ones(E, dtype=torch.bool, device=dev))
+    ms = []
+    ck.reset_launch_counts()
+    for _ in range(1 + FOURDOF_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        R, tt, cost = optimize_pose_graph_4dof(t(gr["R"]), t(gr["t"]), edges, t(gr["fixed"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = ck.launch_counts()
+    K = ref["n_kf"]
+    Rj = b64_array(ref["kf_Rcw"], "<f4", (K, 3, 3))
+    tj = b64_array(ref["kf_tcw"], "<f4", (K, 3))
+    Rn, tn = R.cpu().numpy(), tt.cpu().numpy()
+    up_new, up_old = Rn[:, :, 2], gr["R"][:, :, 2]
+    tilt = 2 * np.arcsin(np.clip(np.linalg.norm(up_new - up_old, axis=1) / 2, 0, 1))
+    meas = {"n_kf": K, "n_edges": E, "cost": float(cost), "jax_cost": ref["cost"],
+            "pose_R_vs_jax_max": float(np.abs(Rn - Rj).max()),
+            "pose_t_vs_jax_max_m": float(np.abs(tn - tj).max()),
+            "tilt_max_rad": float(tilt.max()), "tail_moved_m": float(np.abs(tn - gr["t"]).max()),
+            "first_ms": ms[0], "ms": float(np.median(ms[1:])), "card": smi}
+    log(f"[4dof] {K} keyframes, {E} edges: cost {meas['cost']:.6f} (JAX {ref['cost']:.6f}), "
+        f"|dR| vs JAX {meas['pose_R_vs_jax_max']:.2e}, |dt| vs JAX "
+        f"{meas['pose_t_vs_jax_max_m']:.2e} m, largest roll/pitch change "
+        f"{meas['tilt_max_rad']:.2e} rad; {ms[0]:.1f} ms the first call, "
+        f"{meas['ms']:.1f} ms after; {smi}")
+    if meas["pose_R_vs_jax_max"] > FOURDOF_TOL or meas["pose_t_vs_jax_max_m"] > FOURDOF_TOL:
+        raise AssertionError(f"4dof: poses off the JAX run's: {meas}")
+    if meas["tilt_max_rad"] > FOURDOF_TILT:
+        raise AssertionError(f"4dof: a keyframe's gravity direction moved {meas['tilt_max_rad']}")
+    if meas["tail_moved_m"] < 0.05:
+        raise AssertionError("4dof: the graph did not move the drifted tail")
+    return launches, meas
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
@@ -1947,6 +2243,9 @@ def main() -> int:
     ref_loop = load_fixture(LOOP_FIXTURE, LOOP_FRAMES)
     with open(CORRECTION_FIXTURE) as f:
         ref_corr = json.load(f)
+    ref_si = load_fixture(SI_FIXTURE, SI_FRAMES)
+    with open(FOURDOF_FIXTURE) as f:
+        ref_4dof = json.load(f)
     cfg = lap_config()
     t0 = time.perf_counter()
     poses, frames = lap_inputs(N_FRAMES)
@@ -2027,6 +2326,13 @@ def main() -> int:
     by_lap["loop_correction"], corr = lap("loop_correction", run_loop_correction, ref_corr, dev,
                                           smi)
     log(f"[laps] loop correction: {json.dumps(corr)}")
+    # phase 11: visual-inertial SLAM; 11a bench.py's stereo-inertial lap,
+    # 11b one 4-DoF loop correction at full width
+    by_lap["stereo_inertial_lap"], si = lap("stereo_inertial_lap", run_si_lap, ref_si, dev, smi)
+    log(json.dumps(si_metric_line(si)))
+    log(f"[laps] stereo-inertial lap: {json.dumps(si)}")
+    by_lap["loop_4dof"], four = lap("loop_4dof", run_4dof, ref_4dof, dev, smi)
+    log(f"[laps] 4-DoF correction: {json.dumps(four)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

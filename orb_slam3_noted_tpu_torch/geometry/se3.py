@@ -37,6 +37,14 @@ def exp(xi: torch.Tensor) -> SE3:
     return so3.exp(phi), torch.einsum("...ij,...j->...i", so3.left_jacobian(phi), rho)
 
 
+def log(T: SE3) -> torch.Tensor:
+    """Logarithm map; returns (rho, phi)."""
+    R, t = T
+    phi = so3.log(R)
+    rho = torch.einsum("...ij,...j->...i", so3.inverse_left_jacobian(phi), t)
+    return torch.cat([rho, phi], dim=-1)
+
+
 def normalize(T: SE3) -> SE3:
     R, t = T
     return so3.normalize(R), t

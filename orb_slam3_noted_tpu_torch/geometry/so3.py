@@ -110,6 +110,26 @@ def left_jacobian(w: torch.Tensor) -> torch.Tensor:
     return right_jacobian(-w)
 
 
+def inverse_right_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse right Jacobian Jr^-1(w) = I + 1/2 W + (1/t^2 - (1+cos t)/(2 t sin t)) W^2."""
+    t2 = torch.sum(w * w, dim=-1)
+    t = torch.sqrt(t2)
+    W = hat(w)
+    W2 = W @ W
+    small = t < _EPS
+    denom = torch.where(small, 1.0, 2.0 * t * torch.sin(t))
+    c = torch.where(
+        small, 1.0 / 12.0 + t2 / 720.0,
+        1.0 / torch.where(small, 1.0, t2) - (1.0 + torch.cos(t)) / denom,
+    )
+    return _eye(w) + 0.5 * W + c[..., None, None] * W2
+
+
+def inverse_left_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """Inverse left Jacobian Jl^-1(w) = Jr^-1(-w)."""
+    return inverse_right_jacobian(-w)
+
+
 def normalize(R: torch.Tensor) -> torch.Tensor:
     """Re-orthonormalise a drifting rotation matrix (quaternion round-trip)."""
     return from_quat(to_quat(R))

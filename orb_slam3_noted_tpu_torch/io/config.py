@@ -1,13 +1,14 @@
 """Typed SLAM configuration (port of :mod:`orb_slam3_noted_tpu.io.config`).
 
-The same frozen dataclass as the JAX package, with the port's ``Camera``.
-``imu_calib`` waits for the inertial slice; the IMU fields stay so that a
-configuration reads the same in both packages.
+The same frozen dataclass as the JAX package, with the port's ``Camera``;
+``imu_calib`` builds the port's IMU calibration from the IMU fields.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
 
@@ -79,4 +80,27 @@ class SlamConfig:
     def level_sigma2(self):
         return tuple(
             (self.scale_factor ** (2 * i)) for i in range(self.n_levels)
+        )
+
+    def imu_calib(self, dtype=torch.float32, device=None):
+        """The IMU calibration with discrete per-sample variances, on
+        ``device`` (the CPU unless named).
+
+        The reference multiplies continuous densities by sqrt(freq) when
+        constructing ``IMU::Calib`` (`src/Tracking.cc:1186-1192`), i.e. the
+        per-sample variance is density^2 * freq.
+        """
+        from orb_slam3_noted_tpu_torch.imu.preintegration import Calib
+
+        t = lambda v: torch.tensor(v, dtype=dtype, device=device)
+        Rbc = t(self.imu_rbc).reshape(3, 3) if self.imu_rbc else torch.eye(
+            3, dtype=dtype, device=device)
+        f = self.imu_freq
+        return Calib(
+            Rbc=Rbc,
+            tbc=t(self.imu_tbc),
+            cov_ng=t(self.imu_noise_gyro ** 2 * f),
+            cov_na=t(self.imu_noise_acc ** 2 * f),
+            cov_walk_g=t(self.imu_walk_gyro ** 2 / f),
+            cov_walk_a=t(self.imu_walk_acc ** 2 / f),
         )

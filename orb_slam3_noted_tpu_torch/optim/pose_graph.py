@@ -1,5 +1,6 @@
-"""Sim(3) pose-graph (essential graph) optimisation (port of the Sim(3) half
-of :mod:`orb_slam3_noted_tpu.optim.pose_graph`).
+"""Pose-graph (essential graph) optimisation (port of
+:mod:`orb_slam3_noted_tpu.optim.pose_graph`): the Sim(3) graph and the
+4-DoF graph of gravity-aligned inertial maps.
 
 ``Optimizer::OptimizeEssentialGraph``: after a loop is found, every
 keyframe pose is re-optimised as a Sim(3) vertex against relative-pose
@@ -14,8 +15,11 @@ so its sums run in a fixed order on every device, and solved whole (by
 Cholesky: it is positive definite once damped).  The LM
 accept test is a ``torch.where``: nothing is read back inside the loop.
 
-The 4-DoF graph of the inertial maps waits for the inertial slice and the
-mesh-sharded graph for the distribution slice (ROADMAP, next steps 3 and 7).
+:func:`optimize_pose_graph_4dof` (``OptimizeEssentialGraph4DoF``) moves
+each keyframe by a yaw about the gravity axis and a translation only, so a
+loop correction cannot tilt the gravity direction the IMU made
+observable; its Jacobians are central differences in float64 too.  The
+mesh-sharded graph waits for the distribution slice (ROADMAP, next steps 7).
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from orb_slam3_noted_tpu_torch.geometry import sim3
+from orb_slam3_noted_tpu_torch.geometry import se3, sim3
 
 
 class Sim3Edges(NamedTuple):
@@ -138,3 +142,115 @@ def optimize_pose_graph_sim3(
         cost = cost_new
         cost_old = torch.where(better, cost_new, cost_old)
     return R, t, s, cost
+
+
+# ---------------------------------------------------------------------------
+# 4-DoF pose graph (yaw + translation) for the gravity-aligned inertial case
+# ---------------------------------------------------------------------------
+
+
+class SE3Edges(NamedTuple):
+    """Relative SE(3) edge table: measurement T_ji = T_j T_i^-1."""
+
+    i: torch.Tensor       # (E,) int32
+    j: torch.Tensor       # (E,) int32
+    R: torch.Tensor       # (E, 3, 3)
+    t: torch.Tensor       # (E, 3)
+    weight: torch.Tensor  # (E,)
+    valid: torch.Tensor   # (E,) bool
+
+
+def _rz(psi: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation by ``psi`` about the world z (gravity) axis."""
+    c, s = torch.cos(psi), torch.sin(psi)
+    z, o = torch.zeros_like(psi), torch.ones_like(psi)
+    return torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
+def _apply_4dof(Ti, d):
+    """World-side 4-DoF update of a world -> keyframe pose, d = (yaw, dt):
+    the keyframe's centre moves to Rz(yaw) c + dt, its orientation yaws
+    (``VertexPose4DoF``)."""
+    Ri, ti = Ti
+    Rn = Ri @ _rz(d[..., 0]).transpose(-1, -2)
+    return Rn, ti - torch.einsum("...ij,...j->...i", Rn, d[..., 1:])
+
+
+def _edge_residual_se3(Tm, Ti, Tj):
+    return se3.log(se3.compose(Tm, se3.compose(Ti, se3.inverse(Tj))))
+
+
+def _residual_tangent_4dof(Tm, Ti, Tj, di, dj):
+    return _edge_residual_se3(Tm, _apply_4dof(Ti, di), _apply_4dof(Tj, dj))
+
+
+def _edge_jacobians_4dof(Tm, Ti, Tj, h: float = 1e-6):
+    """(Ji, Jj), (E, 6, 4) each, by central differences in float64 along the
+    8 tangent directions of the edge's two vertices, in one batch."""
+    E = Tm[1].shape[0]
+    dev = Tm[1].device
+    T64 = [tuple(x.to(torch.float64) for x in T) for T in (Tm, Ti, Tj)]
+    step = h * torch.eye(8, dtype=torch.float64, device=dev)
+    step = torch.cat([step, -step])[:, None, :].expand(16, E, 8)
+    r = _residual_tangent_4dof(*T64, step[..., :4], step[..., 4:])  # (16, E, 6)
+    J = ((r[:8] - r[8:]) / (2.0 * h)).permute(1, 2, 0).to(Tm[1].dtype)
+    return J[..., :4], J[..., 4:]
+
+
+def optimize_pose_graph_4dof(
+    R: torch.Tensor,       # (K, 3, 3) T_iw rotations (world -> kf)
+    t: torch.Tensor,       # (K, 3)
+    edges: SE3Edges,
+    fixed: torch.Tensor,   # (K,) bool
+    n_iters: int = 12,
+    lam: float = 1e-6,
+):
+    """Damped Gauss-Newton over the yaw + translation pose graph. Returns
+    (R, t, cost)."""
+    K = R.shape[0]
+    dtype, dev = t.dtype, t.device
+    i, j = edges.i.long(), edges.j.long()
+    ks = torch.arange(K, device=dev)
+    Oi = (ks[:, None] == i[None, :]).to(dtype)
+    Oj = (ks[:, None] == j[None, :]).to(dtype)
+    w = torch.where(edges.valid, edges.weight.to(dtype), 0.0)
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    free = (~fixed).to(dtype)[:, None]
+    lam_c = torch.full((), lam, dtype=dtype, device=dev)
+    Tm = (edges.R, edges.t)
+
+    def evaluate(R, t):
+        r = _edge_residual_se3(Tm, (R[i], t[i]), (R[j], t[j]))
+        return r, torch.sum(w * torch.sum(r * r, dim=-1))
+
+    r, cost_old = evaluate(R, t)
+    cost = cost_old
+    for _ in range(n_iters):
+        Ji, Jj = _edge_jacobians_4dof(Tm, (R[i], t[i]), (R[j], t[j]))
+        wJi = w[:, None, None] * Ji
+        wJj = w[:, None, None] * Jj
+        Hij = torch.einsum("eai,eaj->eij", wJi, Jj)
+        H = (torch.einsum("ae,be,exy->axby", Oi, Oi, torch.einsum("eai,eaj->eij", wJi, Ji))
+             + torch.einsum("ae,be,exy->axby", Oj, Oj, torch.einsum("eai,eaj->eij", wJj, Jj))
+             + torch.einsum("ae,be,exy->axby", Oi, Oj, Hij)
+             + torch.einsum("ae,be,eyx->axby", Oj, Oi, Hij))
+        g = (Oi @ torch.einsum("eai,ea->ei", Ji, w[:, None] * r)
+             + Oj @ torch.einsum("eai,ea->ei", Jj, w[:, None] * r))
+        bump = torch.where(fixed, 1e12, lam_c + 1e-8)
+        H[ks, :, ks, :] += bump[:, None, None] * eye4
+        g = g * free
+        # positive definite once damped: Cholesky, a failed factorisation
+        # rejects its step as a worse cost does
+        L, info = torch.linalg.cholesky_ex(H.reshape(K * 4, K * 4))
+        d = torch.cholesky_solve(-g.reshape(K * 4, 1), L).reshape(K, 4) * free
+        Rn, tn = _apply_4dof((R, t), d)
+        r_new, cost_new = evaluate(Rn, tn)
+        better = (info == 0) & (cost_new < cost_old)
+        R = torch.where(better, Rn, R)
+        t = torch.where(better, tn, t)
+        r = torch.where(better, r_new, r)
+        lam_c = torch.where(better, lam_c * 0.5, lam_c * 10.0)
+        cost = cost_new
+        cost_old = torch.where(better, cost_new, cost_old)
+    return R, t, cost

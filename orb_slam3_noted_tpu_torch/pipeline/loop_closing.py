@@ -16,9 +16,11 @@ minimal sets come from :meth:`LoopCloser._sim3_sets` (a ``torch.Generator``
 on the database's device seeded with the keyframe's slot, as the JAX
 package seeds its key), where tests hand in the JAX package's draws.
 
-Inertial maps (the 4-DoF graph, velocity rotation, the inertial BA after a
-correction) wait for the inertial slice; the mesh-sharded pose graph and
-GBA for the distribution slice (ROADMAP, next steps 3 and 7).
+In a gravity-aligned inertial map (``imu_stage >= 1``) the correction runs
+the 4-DoF graph (yaw and translation, ``OptimizeEssentialGraph4DoF``),
+rotates the keyframes' body velocities with their corrections and runs
+FullInertialBA over the chain instead of a global BA.  The mesh-sharded
+pose graph and GBA wait for the distribution slice (ROADMAP, next steps 7).
 """
 
 from __future__ import annotations
@@ -31,7 +33,13 @@ from orb_slam3_noted_tpu_torch.geometry import twoview as TV
 from orb_slam3_noted_tpu_torch.geometry.sim3_solver import N_HYP, Sim3Result, sim3_ransac
 from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.optim.gba import SlicedGBA
-from orb_slam3_noted_tpu_torch.optim.pose_graph import Sim3Edges, optimize_pose_graph_sim3
+from orb_slam3_noted_tpu_torch.geometry import se3
+from orb_slam3_noted_tpu_torch.optim.pose_graph import (
+    SE3Edges,
+    Sim3Edges,
+    optimize_pose_graph_4dof,
+    optimize_pose_graph_sim3,
+)
 from orb_slam3_noted_tpu_torch.optim.sim3_opt import sim3_refine
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
@@ -45,11 +53,6 @@ CORRECT_RANGE = "loop_correct"
 RANSAC_RANGE = "loop_ransac"
 REFINE_RANGE = "loop_refine"
 POSE_GRAPH_RANGE = "loop_pose_graph"
-
-
-def _todo_inertial():
-    return NotImplementedError(
-        "loop correction of an inertial map is not ported yet (ROADMAP.md, next steps 3)")
 
 
 def _matched_point_pairs(m, slot_cur: int, slot_cand: int):
@@ -340,11 +343,12 @@ class LoopCloser:
     def _correct(self, slam, slot: int, cand: int, res, covis=None):
         """``CorrectLoop``: the essential graph (spanning tree, strong
         covisibility, every accepted loop, this loop), the Sim(3) pose graph
-        with ``cand`` fixed, the corrected poses and points written back,
-        SearchAndFuse queued on both loop keyframes, a ``SlicedGBA`` started,
-        and the last tracked pose re-anchored through ``slot``'s correction."""
-        if getattr(slam, "imu_stage", 0) >= 1:
-            raise _todo_inertial()
+        (the 4-DoF graph in an inertial map) with ``cand`` fixed, the
+        corrected poses and points written back, SearchAndFuse queued on
+        both loop keyframes, a ``SlicedGBA`` started (FullInertialBA over the
+        chain in an inertial map), and the last tracked pose re-anchored
+        through ``slot``'s correction."""
+        inertial_4dof = getattr(slam, "imu_stage", 0) >= 1
         m = slam.m
         KF = m.kf_Rcw.shape[0]
         dev = m.kf_tcw.device
@@ -370,8 +374,6 @@ class LoopCloser:
         s_all = torch.ones(KF, dtype=t_all.dtype, device=dev)
         ij = torch.from_numpy(np.asarray([ei + [cand], ej + [slot]], np.int64)).to(dev)
         i_e, j_e = ij[0, :-1], ij[1, :-1]
-        Rr, tr, sr = sim3.compose((R_all[j_e], t_all[j_e], s_all[j_e]),
-                                  sim3.inverse((R_all[i_e], t_all[i_e], s_all[i_e])))
         # edge weights (the loop edge counts n/4 + 1) and the fixed vertices
         # (the candidate, and invalid slots to keep H regular), in one copy
         host = np.ones(n_real + 1 + KF, np.float32)
@@ -379,24 +381,53 @@ class LoopCloser:
         host[n_real + 1:] = ~kf_valid
         host[n_real + 1 + cand] = 1.0
         wf = torch.from_numpy(host).to(dev)
-        edges = Sim3Edges(
-            i=ij[0].to(torch.int32), j=ij[1].to(torch.int32),
-            R=torch.cat([Rr, res.R[None]]), t=torch.cat([tr, res.t[None]]),
-            s=torch.cat([sr, res.s.reshape(1)]), weight=wf[:n_real + 1],
-            valid=torch.ones(n_real + 1, dtype=torch.bool, device=dev))
+        valid = torch.ones(n_real + 1, dtype=torch.bool, device=dev)
         with torch.profiler.record_function(POSE_GRAPH_RANGE):
-            R_new, t_new, s_new, _ = optimize_pose_graph_sim3(
-                R_all, t_all, s_all, edges, wf[n_real + 1:] > 0, fix_scale=_scale_fixed(slam))
+            if inertial_4dof:
+                # yaw + translation: a Sim(3)/SE(3) graph would let the
+                # correction tilt the gravity direction the IMU made
+                # observable; the loop Sim(3) ran with the scale fixed
+                Rr, tr = se3.compose((R_all[j_e], t_all[j_e]), se3.inverse((R_all[i_e], t_all[i_e])))
+                edges = SE3Edges(
+                    i=ij[0].to(torch.int32), j=ij[1].to(torch.int32),
+                    R=torch.cat([Rr, res.R[None]]), t=torch.cat([tr, (res.t / res.s)[None]]),
+                    weight=wf[:n_real + 1], valid=valid)
+                R_new, t_new, _ = optimize_pose_graph_4dof(R_all, t_all, edges,
+                                                           wf[n_real + 1:] > 0)
+                s_new = s_all
+            else:
+                Rr, tr, sr = sim3.compose((R_all[j_e], t_all[j_e], s_all[j_e]),
+                                          sim3.inverse((R_all[i_e], t_all[i_e], s_all[i_e])))
+                edges = Sim3Edges(
+                    i=ij[0].to(torch.int32), j=ij[1].to(torch.int32),
+                    R=torch.cat([Rr, res.R[None]]), t=torch.cat([tr, res.t[None]]),
+                    s=torch.cat([sr, res.s.reshape(1)]), weight=wf[:n_real + 1], valid=valid)
+                R_new, t_new, s_new, _ = optimize_pose_graph_sim3(
+                    R_all, t_all, s_all, edges, wf[n_real + 1:] > 0,
+                    fix_scale=_scale_fixed(slam))
             slam.m = _apply_correction(m, R_new, t_new, s_new)
+
+        if inertial_4dof and getattr(slam, "ki", None) is not None:
+            # the keyframes' body velocities turn with their corrections:
+            # world vectors transform by R_new^T R_old
+            Rdelta = torch.einsum("kji,kjl->kil", R_new, R_all)
+            vel_rot = torch.einsum("kij,kj->ki", Rdelta, slam.ki.vel)
+            slam.ki = slam.ki._replace(
+                vel=torch.where(m.kf_valid[:, None], vel_rot, slam.ki.vel))
+            slam.cur_vel = slam.ki.vel[slot]
 
         cfg = getattr(slam, "cfg", None)
         if cfg is not None:
             # SearchAndFuse, one dispatch per frame boundary (service_gba)
             self._post_fuse.extend([cand, slot])
-            if self.enable_gba:
-                # the reference's GBA thread: one LM slice per frame boundary
-                self.active_gba = SlicedGBA(slam.m, slam.cam, cfg, bf=cfg.bf, n_iters=6,
-                                            n_iters_final=4)
+        if inertial_4dof and hasattr(slam, "_chain_ba"):
+            # an inertial map: FullInertialBA over the chain, not a visual GBA
+            # that would drag poses off the gravity-consistent solution
+            slam._chain_ba(window=None, n_iters=8)
+        elif self.enable_gba and cfg is not None:
+            # the reference's GBA thread: one LM slice per frame boundary
+            self.active_gba = SlicedGBA(slam.m, slam.cam, cfg, bf=cfg.bf, n_iters=6,
+                                        n_iters_final=4)
         # tracking continues from the last tracked frame re-anchored through
         # the loop keyframe's correction:
         # T_last_new = (T_last_old o T_kf_old^-1) o T_kf_new

@@ -497,3 +497,18 @@ def apply_ba_result(
         kf_tcw=m.kf_tcw.index_add(0, ks, dt),
         mp_pos=m.mp_pos.index_add(0, ms, dp),
     )
+
+
+def apply_scaled_rotation_map(m: MapArrays, Ryw: torch.Tensor, scale: torch.Tensor) -> MapArrays:
+    """Gravity-align and rescale the whole map (``Map::ApplyScaledRotation``,
+    called from ``LocalMapping::InitializeIMU``): world points
+    x' = s Ryw x; camera poses Rcw' = Rcw Ryw^T, tcw' = s tcw; the
+    scale-invariance distances rescale and the normals rotate."""
+    return m._replace(
+        kf_Rcw=torch.einsum("kij,lj->kil", m.kf_Rcw, Ryw),
+        kf_tcw=m.kf_tcw * scale,
+        mp_pos=scale * torch.einsum("ij,nj->ni", Ryw, m.mp_pos),
+        mp_normal=torch.einsum("ij,nj->ni", Ryw, m.mp_normal),
+        mp_dmin=m.mp_dmin * scale,
+        mp_dmax=m.mp_dmax * scale,
+    )

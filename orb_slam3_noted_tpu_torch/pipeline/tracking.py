@@ -50,6 +50,16 @@ from orb_slam3_noted_tpu_torch.utils.interop import const_tensor, set_scalar
 from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 
 
+def _second_camera(cfg: SlamConfig):
+    """(cam2, Rrl, trl) for two-camera residual rows, or (None, None, None)
+    for a rectified or single-camera rig.  The two-camera (fisheye) rig
+    waits for its slice."""
+    if cfg.camera2 is None:
+        return None, None, None
+    raise NotImplementedError(
+        "two-camera (fisheye) residual rows are not ported yet (ROADMAP.md, next steps 4)")
+
+
 def _scale_table(cfg: SlamConfig, like: torch.Tensor) -> torch.Tensor:
     return const_tensor(
         tuple(O.scale_factors(cfg.n_levels, cfg.scale_factor).tolist()), like.dtype, like.device
@@ -423,13 +433,10 @@ def insert_keyframe_step(
     """The whole synchronous mapper pass for one keyframe
     (``LocalMapping::Run``): insert -> (stereo) depth-seeded points ->
     triangulate against the top covisible neighbours -> fuse -> point cull
-    -> point statistics -> local BA -> keyframe cull.  Returns (m, n_mp)
-    with ``n_mp`` a 0-d int32 tensor."""
-    if not visual_ba:
-        raise NotImplementedError(
-            "insert_keyframe_step without local BA serves the inertial mapper, "
-            "which is not ported yet (ROADMAP.md, next steps 3)"
-        )
+    -> point statistics -> local BA -> keyframe cull.  ``visual_ba=False``
+    (the inertial caller, which runs LocalInertialBA over the temporal chain
+    and owns keyframe culling) stops after the statistics.  Returns (m,
+    n_mp) with ``n_mp`` a 0-d int32 tensor."""
     dev = m.mp_pos.device
     n_mp = torch.as_tensor(n_mp, dtype=torch.int32, device=dev)
     m = MS.add_keyframe(
@@ -462,6 +469,8 @@ def insert_keyframe_step(
     m = fuse_map_points(m, slot, mp_mask, cam, cfg)
     m = MS.cull_map_points(m, slot)
     m = MS.update_point_stats(m, mp_mask, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor)
+    if not visual_ba:
+        return m, n_mp
     m = local_ba(m, slot, cam, cfg, window=cfg.local_window, bf=bf)
     protect = torch.zeros(m.kf_valid.shape[0], dtype=torch.bool, device=dev)
     set_scalar(protect, slot, True)

@@ -189,3 +189,36 @@ def build_stereo_map(ms, m, inp: dict, asarray):
                                   f32(np.zeros((M, 3))), f32(np.zeros(M)), f32(np.full(M, 100.0)),
                                   0, ones, 0, bind, 0, bind)
     return m
+
+
+# ---------------------------------------------------------------------------
+# the drifted map's essential graph as an inertial map has it (4-DoF graph)
+
+def inertial_loop_graph(inp: dict) -> dict:
+    """The pose graph of a loop correction on the drifted map of
+    :func:`drifted_map_inputs`, as a gravity-aligned (inertial) map builds
+    it: the keyframe poses (``R`` (n_kf, 3, 3) world-to-camera, ``t``), the
+    temporal chain k-1 -> k (an inertial map's spanning tree) measured from
+    those poses, and the loop edge 0 -> tail measured as the true relative
+    pose (``T_j T_i^-1``: the tail's true pose is keyframe 0's rotation with
+    its centre moved by the baseline); weights as ``LoopCloser._correct``
+    gives them (1, the loop edge n/4 + 1) and keyframe 0 fixed.  float32
+    arrays, the measurements composed in float64."""
+    n_kf = inp["n_kf"]
+    R = np.stack([p[0] for p in inp["poses"][: n_kf - 1]] + [inp["Rcw_tail"]]).astype(np.float32)
+    t = np.stack([p[1] for p in inp["poses"][: n_kf - 1]] + [inp["tcw_tail"]]).astype(np.float32)
+    i = np.arange(n_kf - 1)
+    j = i + 1
+    R64, t64 = R.astype(np.float64), t.astype(np.float64)
+    eR = np.einsum("eab,ecb->eac", R64[j], R64[i])            # R_j R_i^T
+    et = t64[j] - np.einsum("eab,eb->ea", eR, t64[i])
+    R0, t0 = (np.asarray(x, np.float64) for x in inp["poses"][0])
+    t_true = t0 - R0 @ inp["baseline"].astype(np.float64)   # tail: R0, centre moved
+    n_real = len(i)
+    return dict(
+        R=R, t=t, i=np.append(i, 0).astype(np.int32), j=np.append(j, n_kf - 1).astype(np.int32),
+        eR=np.concatenate([eR, np.eye(3)[None]]).astype(np.float32),
+        et=np.concatenate([et, (t_true - t0)[None]]).astype(np.float32),
+        weight=np.append(np.ones(n_real), n_real / 4 + 1.0).astype(np.float32),
+        fixed=np.arange(n_kf) == 0,
+    )

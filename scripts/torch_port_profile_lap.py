@@ -1,7 +1,7 @@
 """Where the time of the port's smoke laps goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono|mono_reloc] [--runs 2]
-                                              [--out-dir DIR] [--tree DIR]
+    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono|mono_reloc|stereo_inertial]
+                                              [--runs 2] [--out-dir DIR] [--tree DIR]
 
 Drives the lap of ``chip_smoke.py`` (same configuration, same rendered
 frames) through the port on ``cuda``:
@@ -45,6 +45,19 @@ frames from the last 3 mapped ones to the revisit's 4th, split as for
 ``mono`` with the ``relocalize`` and ``place_recognition`` stages (a
 relocalisation attempt's matching, PnP and re-track; its BoW query and each
 keyframe's BoW vector).
+
+``--mode stereo_inertial`` drives ``chip_smoke.py``'s stereo-inertial lap
+(``bench.py``'s, 240 pairs staged on the card,
+``StereoInertialSLAM.process_batch`` in batches of 16 from frame 0 with the
+fixture's IMU samples): ``--runs`` plain laps (frames/s, tracked, ATE,
+``imu_stage``), then one more lap with ``torch.profiler`` over
+``--profile-batches`` batches from batch ``--profile-from-batch`` (default
+4: frames 64-95, after both IMU init stages), with kernel launches,
+host-to-device copies and host ms per frame split across the inertial
+stages (``vi_frontend_batch``, ``vi_track_batch``, ``insert_keyframe``,
+``chain_ba``, ``imu_init``, ``place_recognition``, ``loop_drain``, the
+rest), and the launches of one chain BA (its range's launches over its
+calls in the window).
 
 Prints one JSON object last, and the card's name and power limit before it;
 writes the operations by device time to ``<out-dir>/profile_<mode>_<from>.txt``
@@ -326,9 +339,102 @@ def main_reloc(args, cs, system) -> int:
     return 0
 
 
+def main_stereo_inertial(args, cs, system) -> int:
+    """``chip_smoke.py``'s stereo-inertial lap: plain laps, then one under
+    ``torch.profiler`` over ``--profile-batches`` batches from
+    ``--profile-from-batch``, split by the inertial facade's stages."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops.cuda_kernels import build_library
+    from orb_slam3_noted_tpu_torch.pipeline import inertial_system as IS
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    build_library()
+    ref = cs.load_fixture(cs.SI_FIXTURE, cs.SI_FRAMES)
+    twc, times, pairs, chunks = cs.si_inputs(ref)
+    n = len(pairs)
+    staged = torch.from_numpy(np.stack([p[0] for p in pairs] + [p[1] for p in pairs])).to(dev)
+    frames = [(staged[i], staged[n + i]) for i in range(n)]
+    first = args.profile_from_batch
+    window = range(first, first + args.profile_batches)
+
+    def lap(prof=None):
+        slam = IS.StereoInertialSLAM(cs.si_config(ref), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wall_p = 0.0
+        for c, s0 in enumerate(range(0, n, cs.BATCH)):
+            s1 = min(s0 + cs.BATCH, n)
+            a, g, ts = chunks[c]
+            if prof is not None and c == window.start:
+                torch.cuda.synchronize()
+                prof.__enter__()
+                tp = time.perf_counter()
+            slam.process_batch(frames[s0:s1], list(range(s0, s1)), ts=times[s0:s1], acc=a,
+                               gyr=g, imu_t=ts)
+            if prof is not None and c == window.stop - 1:
+                torch.cuda.synchronize()
+                wall_p = time.perf_counter() - tp
+                prof.__exit__(None, None, None)
+        torch.cuda.synchronize()
+        return slam, time.perf_counter() - t0, wall_p
+
+    laps = []
+    for run in range(args.runs):
+        slam, wall, _ = lap()
+        ok = np.asarray([r.state == "OK" for r in slam.trajectory])
+        laps.append({"fps": n / wall, "wall_s": wall, "tracked": int(ok.sum()),
+                     "imu_stage": slam.imu_stage, "kf_inserted": slam.kf_inserted,
+                     "ate_se3_m": ate_rmse(slam.positions()[ok], twc[ok], with_scale=False)[0]})
+        print(f"[lap {run}] {laps[-1]}", flush=True)
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+    slam, _, wall_p = lap(prof)
+    n_win = len(window) * cs.BATCH
+    stages = (IS.VI_FRONTEND_RANGE, IS.VI_TRACK_RANGE, system.KEYFRAME_RANGE, IS.CHAIN_BA_RANGE,
+              IS.IMU_INIT_RANGE, system.PLACE_RANGE, system.LOOP_DRAIN_RANGE)
+    # chain BA nests in the keyframe insertion's caller, not in its range,
+    # and in an IMU init: count each launch once, in the innermost stage
+    by_stage = split_by_range(prof, (IS.CHAIN_BA_RANGE, *[r for r in stages
+                                                           if r != IS.CHAIN_BA_RANGE]), n_win)
+    by_stage["rest"]["host_ms"] = wall_p * 1e3 / n_win - sum(
+        r["host_ms"] for k, r in by_stage.items() if k != "rest")
+    plain_ms = float(np.mean([l["wall_s"] for l in laps])) * 1e3 * n_win / n
+    summary = profile_summary(prof, n_win, plain_ms, stages)
+    from torch.autograd import DeviceType
+
+    n_chain = sum(1 for e in prof.events()
+                  if e.name == IS.CHAIN_BA_RANGE and e.device_type == DeviceType.CPU)
+    n_track = sum(1 for e in prof.events()
+                  if e.name == IS.VI_TRACK_RANGE and e.device_type == DeviceType.CPU)
+    out = {
+        "mode": "stereo_inertial", "card": smi, "laps": laps, "frames": n, "batch": cs.BATCH,
+        "profile": {
+            "batches": [window.start, window.stop], "frames": n_win, "profiled_wall_s": wall_p,
+            **summary, "per_frame_by_stage": by_stage,
+            "chain_ba_calls": n_chain,
+            "launches_per_chain_ba": (by_stage[IS.CHAIN_BA_RANGE]["launches"] * n_win / n_chain
+                                      if n_chain else None),
+            "vi_track_dispatches": n_track,
+        },
+        "peak_device_memory_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+    }
+    os.makedirs(args.out_dir, exist_ok=True)
+    with open(os.path.join(args.out_dir, "profile_stereo_inertial.txt"), "w") as f:
+        f.write(f"{smi}\nper frame by stage: {json.dumps(by_stage)}\n")
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono", "mono_reloc"), default="stereo")
+    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono", "mono_reloc", "stereo_inertial"),
+                    default="stereo")
+    ap.add_argument("--profile-from-batch", type=int, default=4,
+                    help="stereo_inertial: first batch profiled")
     ap.add_argument("--runs", type=int, default=2)
     ap.add_argument("--profile-from", type=int, default=16)
     ap.add_argument("--profile-batches", type=int, default=2, help="mono: batches profiled")
@@ -348,6 +454,8 @@ def main() -> int:
         return main_mono(args, cs, system)
     if args.mode == "mono_reloc":
         return main_reloc(args, cs, system)
+    if args.mode == "stereo_inertial":
+        return main_stereo_inertial(args, cs, system)
     dev = torch.device("cuda")
     smi = cs.nvidia_smi()
     cfg = cs.lap_config()

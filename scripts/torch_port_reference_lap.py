@@ -24,6 +24,12 @@ end with ``flush()``; they record ``loops_closed`` and their detections.
 bench configuration (``scripts/loop_scaffold.py``), written to
 ``tests/fixtures/loop_correction_full.json`` (see
 :func:`main_loop_correction`).
+``--mode stereo_inertial``: ``bench.py``'s 240-frame stereo-inertial lap
+(``bench.py:146-212``), written to ``tests/fixtures/stereo_inertial_lap.json``
+(see :func:`main_stereo_inertial`); it also writes
+``tests/fixtures/loop_4dof_full.json``, which ``--mode loop_4dof`` writes
+alone: the 4-DoF pose graph of a loop on the drifted 64-keyframe map (see
+:func:`main_loop_4dof`).
 
 Writes per-frame states, inlier counts and ``positions()``, and for the
 SLAM laps the keyframe and map-point counts, to a small JSON file (default
@@ -43,6 +49,7 @@ few of them 1 ulp otherwise, which moves edge pixels of the renders)::
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode mono
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode mono_loop
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode loop_correction
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode stereo_inertial
 """
 
 from __future__ import annotations
@@ -71,6 +78,8 @@ FIXTURES = {
     "mono_reloc": ("mono_reloc_lap.json", 120),
     "mono_loop": ("mono_loop_lap.json", 400),
     "loop_correction": ("loop_correction_full.json", 0),
+    "stereo_inertial": ("stereo_inertial_lap.json", 240),
+    "loop_4dof": ("loop_4dof_full.json", 0),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -192,6 +201,11 @@ def main():
         return main_mono_loop(args.out, n, tuple(args.arms.split(",")))
     if args.mode == "loop_correction":
         return main_loop_correction(args.out)
+    if args.mode == "stereo_inertial":
+        main_stereo_inertial(args.out, n)
+        return main_loop_4dof(os.path.join(os.path.dirname(args.out), FIXTURES["loop_4dof"][0]))
+    if args.mode == "loop_4dof":
+        return main_loop_4dof(args.out)
 
     import jax
 
@@ -798,6 +812,170 @@ def main_mono_reloc(out_path: str):
                                    "rwc_f32", "pnp_attempts", "final_poses_f32", "frame_ids",
                                    "pose_index")}))
     print(f"wall {wall:.1f} s", file=sys.stderr)
+
+
+
+# bench.py's stereo-inertial configuration (``cfg_vi``, bench.py:151-165)
+VI_FPS, VI_IMU_HZ = 20.0, 200.0
+VI_CFG = dict(width=W, height=H, n_features=1200, fps=VI_FPS, th_depth=45.0,
+              max_keyframes=64, max_map_points=16384, local_window=5, kf_max_interval=10,
+              min_tracked_points=15, imu_init_time=0.9, imu_viba1_time=2.5, imu_viba2_time=1e9,
+              imu_init_min_kfs=3, inertial_window=8, imu_noise_gyro=1.7e-4, imu_noise_acc=2e-3,
+              imu_walk_gyro=1.9e-5, imu_walk_acc=3e-3, imu_freq=VI_IMU_HZ,
+              enable_loop_closing=True)
+
+
+def stereo_inertial_inputs(n: int):
+    """(camera rotations (n, 3, 3) float32, centres (n, 3), frame times, the
+    IMU chunk of each batch of 16 as ``bench.py:190-196`` cuts them: (acc,
+    gyr, ts) of ``synth_imu`` over (last frame before, last frame of the
+    batch]) of ``bench.py``'s stereo-inertial lap, JAX package."""
+    from orb_slam3_noted_tpu.utils.synthetic import smooth_pose, synth_imu
+
+    times = [k / VI_FPS for k in range(n)]
+    poses = [smooth_pose(t) for t in times]
+    chunks, t_prev = [], -1.0 / VI_FPS
+    for s0 in range(0, n, BATCH):
+        s1 = min(s0 + BATCH, n)
+        chunks.append(synth_imu(t_prev, times[s1 - 1], hz=VI_IMU_HZ))
+        t_prev = times[s1 - 1]
+    return (np.stack([R for R, _ in poses]).astype(np.float32),
+            np.stack([t for _, t in poses]), times, chunks)
+
+
+def main_stereo_inertial(out_path: str, n: int):
+    """``bench.py``'s stereo-inertial lap, one pass (``StereoInertialSLAM.
+    process_batch`` in batches of 16 from frame 0, loop closing on, each
+    batch with its IMU chunk), with ``flush()`` at the end.  Records per
+    frame the state, inliers, ``positions()`` and ``imu_stage``; the stage
+    after each batch and the frame where each stage began; every
+    ``inertial_init`` solve (stage, scale, gravity in the visual world,
+    biases); tracked frames, keyframe insertions and count, loops and every
+    detection and Sim(3) draw; the final biases; ATE over ``positions()``
+    after SE(3) and Sim(3) alignment; the camera poses the frames were
+    rendered from and the IMU samples (float64, base64), so that the port
+    runs on the same input."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.pipeline import inertial_system as jis
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom, stereo_pair
+
+    rwc, twc, times, chunks = stereo_inertial_inputs(n)
+    room = BoxRoom(seed=0)
+    pairs = [stereo_pair(room, R, t, CAM_PARAMS, W, H, BASELINE)[:2] for R, t in zip(rwc, twc)]
+    pairs = [(a.astype(np.uint8), b.astype(np.uint8)) for a, b in pairs]
+    cam = Camera(PINHOLE, CAM_PARAMS)
+    cfg = SlamConfig(camera=cam, bf=BASELINE * cam.fx, **VI_CFG)
+    slam = jis.StereoInertialSLAM(cfg)
+    inits, solve = [], jis.inertial_init
+
+    def recording_init(*args, **kw):
+        res = solve(*args, **kw)
+        inits.append({"stage": int(slam.imu_stage), "scale": float(res.scale),
+                      "g_world": _mat(res.g_world), "gdir": _mat(res.gdir), "bg": _mat(res.bg),
+                      "ba": _mat(res.ba), "n_kf": int(len(slam.kf_order))})
+        return res
+
+    jis.inertial_init = recording_init
+    detections = record_detections()
+    stage_after_batch, stage_frame = [], {}
+    t0 = time.perf_counter()
+    for ci, s0 in enumerate(range(0, n, BATCH)):
+        s1 = min(s0 + BATCH, n)
+        a, g, ts = chunks[ci]
+        slam.process_batch(pairs[s0:s1], list(range(s0, s1)), ts=times[s0:s1], acc=a, gyr=g,
+                           imu_t=ts)
+        stage_after_batch.append(int(slam.imu_stage))
+        stage_frame.setdefault(str(slam.imu_stage), s1 - 1)
+        print(f"batch {ci:2d} frames {s0}-{s1 - 1} imu_stage {slam.imu_stage} keyframes "
+              f"{slam.n_kf} tracked {sum(r.state == 'OK' for r in slam.trajectory)} "
+              f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    slam.flush()
+    wall = time.perf_counter() - t0
+    jis.inertial_init = solve
+
+    est = slam.positions()
+    states = [r.state for r in slam.trajectory]
+    ok = np.asarray([s == "OK" for s in states])
+    ate_se3, _, _ = ate_rmse(est[ok], twc[ok], with_scale=False)
+    ate_sim3, _, (_, _, scale) = ate_rmse(est[ok], twc[ok], with_scale=True)
+    b64f = lambda x: b64(np.asarray(x, "<f8"))
+    out = {
+        "source": f"JAX StereoInertialSLAM.process_batch in batches of {BATCH} from frame 0 "
+                  "(bench.py:146-212, one pass), loop closing on, flush() at the end, CPU",
+        "frames": n, "width": W, "height": H, "camera": list(CAM_PARAMS), "batch": BATCH,
+        "config": VI_CFG, "bf": BASELINE * cam.fx,
+        "states": states,
+        "n_inliers": [int(r.n_inliers) for r in slam.trajectory],
+        "positions": est.astype(float).tolist(),
+        "tracked": int(ok.sum()),
+        "imu_stage": int(slam.imu_stage),
+        "stage_after_batch": stage_after_batch,
+        # the last frame of the batch after which each stage was first seen
+        "stage_frame": stage_frame,
+        "inertial_init": inits,
+        "bias_bg": _mat(slam.bias.bg), "bias_ba": _mat(slam.bias.ba),
+        "n_kf": int(slam.n_kf), "kf_inserted": int(slam.kf_inserted),
+        "kf_frame_ids": sorted(int(f) for f in slam.kf_frame_ids if f >= 0),
+        "n_mp": int(slam.n_mp),
+        "loops_closed": int(slam.loop_closer.loops_closed if slam.loop_closer else 0),
+        "ate_se3_m": float(ate_se3), "ate_sim3_m": float(ate_sim3), "ate_sim3_scale": float(scale),
+        "span_m": float(np.linalg.norm(twc.max(0) - twc.min(0))),
+        "wall_s": wall,
+        "rwc_f32": b64(rwc.astype("<f4")), "twc_f64": b64f(twc),
+        "imu": [{"acc": b64f(a), "gyr": b64f(g), "ts": b64f(ts), "n": int(len(ts))}
+                for a, g, ts in chunks],
+        **detections,
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("states", "n_inliers", "positions", "rwc_f32", "twc_f64", "imu",
+                                   *detections)}))
+
+
+def main_loop_4dof(out_path: str):
+    """The 4-DoF pose graph of a loop correction at the bench configuration:
+    the drifted 64-keyframe map of ``scripts/loop_scaffold.py`` (FULL, seed
+    0, the tail 0.3 / -0.1 / 0.2 m from keyframe 0) with the essential graph
+    an inertial map has (``loop_scaffold.inertial_loop_graph``: the temporal
+    chain and the loop edge), through ``optimize_pose_graph_4dof`` with
+    keyframe 0 fixed.  Records the corrected poses and the final cost."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import loop_scaffold as LS
+
+    from orb_slam3_noted_tpu.optim.pose_graph import SE3Edges, optimize_pose_graph_4dof
+
+    inp = LS.drifted_map_inputs(seed=0, baseline=LS.BASELINE, **LS.FULL)
+    gr = LS.inertial_loop_graph(inp)
+    E = len(gr["i"])
+    edges = SE3Edges(i=jnp.asarray(gr["i"]), j=jnp.asarray(gr["j"]), R=jnp.asarray(gr["eR"]),
+                     t=jnp.asarray(gr["et"]), weight=jnp.asarray(gr["weight"]),
+                     valid=jnp.ones(E, bool))
+    t0 = time.perf_counter()
+    R, t, cost = jax.device_get(optimize_pose_graph_4dof(
+        jnp.asarray(gr["R"]), jnp.asarray(gr["t"]), edges, jnp.asarray(gr["fixed"])))
+    wall = time.perf_counter() - t0
+    f32 = lambda a: b64(np.asarray(a, "<f4"))
+    out = {
+        "source": "JAX optimize_pose_graph_4dof (n_iters 12, lam 1e-6), CPU; scripts/loop_scaffold.py "
+                  f"FULL, seed 0, baseline {list(LS.BASELINE)} m, inertial_loop_graph edges",
+        "n_kf": int(inp["n_kf"]), "n_edges": E, "cost": float(cost),
+        "kf_Rcw": f32(R), "kf_tcw": f32(t), "wall_s": wall,
+    }
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items() if k not in ("kf_Rcw", "kf_tcw")}))
 
 
 if __name__ == "__main__":

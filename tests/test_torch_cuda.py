@@ -741,3 +741,60 @@ def test_sim3_refine_on_card_matches_cpu(dev):
         torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=0)
     assert abs(int(fg.n_inliers.cpu()) - int(fc.n_inliers)) <= 1
     assert abs(float(fc.s) - LS.DRIFT_SCALE) < 1e-3
+
+
+def _vi_dispatch(d):
+    """One visual-inertial tracking dispatch (``vi_track_batch``) on device
+    ``d``: the stereo scaffold map of ``scripts/loop_scaffold.py`` (6
+    keyframes, 120 points, every keyframe sees every point), keyframe 0 the
+    anchor at rest, two frames seeing keyframe 0's view with IMU spans of 0.1
+    s at rest and 0.2 s under a small push (the prediction drifts off, the
+    pose optimisation pulls it back)."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+    from orb_slam3_noted_tpu_torch.pipeline.inertial_system import vi_track_batch
+
+    LS = _scaffold()
+    inp = LS.stereo_map_inputs(K=6, M=120)
+    M = inp["M"]
+    cfg = SlamConfig(camera=Camera(PINHOLE, LS.PIN), width=752, height=480, n_features=M,
+                     max_keyframes=8, max_map_points=256, bf=inp["bf"], local_window=5)
+    m = LS.build_stereo_map(MS, MS.empty_map(cfg, device=d), inp, lambda a: _as_tensor(a).to(d))
+    m = MS.update_point_stats(m, m.mp_valid, n_levels=cfg.n_levels,
+                              scale_factor=cfg.scale_factor)
+    R0 = torch.from_numpy(inp["R"][0]).to(d)
+    g_body = R0 @ torch.tensor([0.0, 0.0, 9.81], device=d)  # Rbw g: the reaction at rest
+    B, N = 2, 41
+    acc = g_body.expand(B, N, 3).clone()
+    acc[1, :, 0] += 0.5
+    gyr = torch.zeros(B, N, 3, device=d)
+    dts = torch.full((B, N), 0.005, device=d)
+    dts[0, 20:] = 0.0
+    lvl = torch.from_numpy(inp["level"][0]).to(d)
+    feats = O.FrameFeatures(
+        xy=torch.from_numpy(inp["uv"][0]).to(d).expand(B, M, 2),
+        level=lvl.expand(B, M), angle=torch.zeros(B, M, device=d),
+        response=torch.ones(B, M, device=d), desc=_as_tensor(inp["desc"]).to(d).expand(B, M, 8),
+        valid=torch.ones(B, M, dtype=torch.bool, device=d))
+    uvr = torch.from_numpy(inp["uvr"][0]).to(d).expand(B, M)
+    z = torch.zeros(3, device=d)
+    calib = cfg.imu_calib(device=d)
+    return vi_track_batch(m, feats, uvr, 0, z, z, z, acc, gyr, dts, N, calib, cfg.camera, cfg,
+                          cfg.bf, torch.ones(B, dtype=torch.bool, device=d))
+
+
+def test_vi_dispatch_on_card_matches_cpu(dev):
+    """A visual-inertial tracking dispatch (preintegration of the batch's
+    spans, prediction, local-map matching, visual-inertial pose
+    optimisation) on the card and on the CPU: poses and velocities within
+    1e-4, the same inliers, bindings and counters."""
+    cpu = _vi_dispatch(torch.device("cpu"))
+    card = _vi_dispatch(dev)
+    m_c, m_g = cpu[0], card[0]
+    for a, b in zip(card[1:3] + card[5:6], cpu[1:3] + cpu[5:6]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=0)
+    assert torch.equal(card[3].cpu(), cpu[3]) and int(cpu[3].min()) >= 40
+    assert torch.equal(card[4].cpu(), cpu[4])
+    assert torch.equal(m_g.mp_found.cpu(), m_c.mp_found)
+    assert torch.equal(m_g.mp_visible.cpu(), m_c.mp_visible)

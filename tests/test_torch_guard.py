@@ -65,7 +65,9 @@ def test_port_names_neither_jax_nor_the_jax_package():
                                                    "loop_scaffold.py", "torch_port_segsum_ab.py")]
     assert {"stereo.py", "triangulation.py", "window_ba.py", "twoview.py", "horn.py",
             "evaluation.py", "trajectory.py", "sim3.py", "sim3_solver.py", "sim3_opt.py",
-            "pose_graph.py", "ba.py", "gba.py", "loop_closing.py"} <= {
+            "pose_graph.py", "ba.py", "gba.py", "loop_closing.py", "preintegration.py",
+            "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
+            "inertial_system.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -101,14 +103,19 @@ def test_port_never_asks_for_a_gpu_or_catches_a_launch():
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path
 
 
-@pytest.mark.parametrize("facade", ["MonoSLAM", "StereoSLAM", "RGBDSLAM"])
+@pytest.mark.parametrize("facade", ["MonoSLAM", "StereoSLAM", "RGBDSLAM", "MonoInertialSLAM",
+                                    "StereoInertialSLAM"])
 def test_facades_default_to_the_cuda_device(facade, monkeypatch):
     """Without a ``device`` the state goes to ``cuda``, whether or not a
-    card is present: the allocation is intercepted before it happens."""
+    card is present: the allocation is intercepted before it happens (the
+    inertial facades are ``pipeline/inertial_system.py``'s)."""
     import torch
 
     from orb_slam3_noted_tpu_torch.io.config import SlamConfig
-    from orb_slam3_noted_tpu_torch.pipeline import map_state, system
+    from orb_slam3_noted_tpu_torch.pipeline import inertial_system, map_state
+    from orb_slam3_noted_tpu_torch.pipeline import system as visual
+
+    system = inertial_system if "Inertial" in facade else visual
 
     seen = []
 

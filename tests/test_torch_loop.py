@@ -207,14 +207,39 @@ def test_service_background_slice_by_slice(vocab):
 
 
 def test_correct_of_an_inertial_map_names_its_step(vocab):
+    """A correction of a gravity-aligned inertial map (``imu_stage >= 1``,
+    step 3) runs the 4-DoF graph in both packages: on the drifted map, with
+    the loop edge (tail, 0) the ladder would hand over, the corrected poses
+    and points agree within 1e-4, no keyframe's roll or pitch moves, the
+    fuses are queued and (the scaffold has no inertial chain) a GBA starts."""
     inp, jcfg, jm, tcfg, tm = scaffold_maps()
+    tail = inp["n_kf"] - 1
     tl = tlc.LoopCloser(vocab, max_keyframes=32, device=CPU)
+    jl = jlc.LoopCloser(vocab, max_keyframes=32)
     ts = LS.ScaffoldSlam(tm, inp["n_kf"], tcfg)
-    ts.imu_stage = 1
-    res = tlc.Sim3Result(success=torch.tensor(True), R=torch.eye(3), t=torch.zeros(3),
-                         s=torch.tensor(1.0), inliers=None, n_inliers=torch.tensor(30))
-    with pytest.raises(NotImplementedError, match="next steps 3"):
-        tl._correct(ts, inp["n_kf"] - 1, 0, res)
+    js = LS.ScaffoldSlam(jm, inp["n_kf"], jcfg)
+    ts.imu_stage = js.imu_stage = 1
+    # the loop Sim(3) of the ladder at fixed scale: the tail's true pose
+    # relative to keyframe 0's, against its drifted one
+    gr = LS.inertial_loop_graph(inp)
+    R_loop, t_loop = gr["eR"][-1], gr["et"][-1]
+    res_t = tlc.Sim3Result(success=torch.tensor(True), R=torch.from_numpy(R_loop),
+                           t=torch.from_numpy(t_loop), s=torch.tensor(1.0), inliers=None,
+                           n_inliers=torch.tensor(30))
+    res_j = jlc.Sim3Result(success=jnp.asarray(True), R=jnp.asarray(R_loop),
+                           t=jnp.asarray(t_loop), s=jnp.asarray(1.0, jnp.float32),
+                           inliers=None, n_inliers=jnp.asarray(30))
+    tl._correct(ts, tail, 0, res_t)
+    jl._correct(js, tail, 0, res_j)
+    a = jax.device_get(js.m)
+    np.testing.assert_allclose(ts.m.kf_Rcw.numpy(), a.kf_Rcw, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ts.m.kf_tcw.numpy(), a.kf_tcw, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ts.m.mp_pos.numpy(), a.mp_pos, rtol=0, atol=1e-4)
+    up_new, up_old = ts.m.kf_Rcw.numpy()[:, :, 2], tm.kf_Rcw.numpy()[:, :, 2]
+    assert np.linalg.norm(up_new - up_old, axis=1).max() <= 1e-5
+    assert float(np.abs(ts.m.kf_tcw.numpy() - tm.kf_tcw.numpy()).max()) > 0.05
+    assert tl._post_fuse == jl._post_fuse == [0, tail]
+    assert tl.active_gba is not None
     assert tlc._scale_fixed(ts) and tlc._scale_fixed(LS.ScaffoldSlam(tm, 2, dataclasses.replace(
         tcfg, bf=40.0))) and not tlc._scale_fixed(LS.ScaffoldSlam(tm, 2, tcfg))
 

@@ -501,13 +501,30 @@ def test_insert_keyframe_step(runs, call):
 
 
 def test_insert_keyframe_step_inertial_caller_raises(runs):
+    """The inertial caller's mapper pass (``visual_ba=False``: no local BA,
+    no keyframe cull; the inertial mapper runs LocalInertialBA over the
+    chain) is ported: from the JAX package's state and arguments it gives
+    the JAX package's ``visual_ba=False`` result (the same allocation
+    pointer +-2, bindings on >= 99% of features, the keyframe poses as
+    given, the new points within 1e-4 m)."""
     args, kw, _ = runs[2][0]
     m, slot, Rcw, tcw, fid, feats, mpf, uvr, depth, n_mp = args[:10]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.insert_keyframe_step(
-            to_t(m), int(slot), tn(Rcw), tn(tcw), int(fid),
-            torb.from_numpy(jax.device_get(feats)._asdict()), tn(mpf), tn(uvr), tn(depth), int(n_mp),
-            tcfg().camera, tcfg(), visual_ba=False)
+    mj, nj = jtr.insert_keyframe_step(*args, **dict(kw, visual_ba=False))
+    mt, nt_ = ttr.insert_keyframe_step(
+        to_t(m), int(slot), tn(Rcw), tn(tcw), int(fid),
+        torb.from_numpy(jax.device_get(feats)._asdict()), tn(mpf), tn(uvr), tn(depth), int(n_mp),
+        tcfg().camera, tcfg(), n_neighbors=kw["n_neighbors"], bf=kw["bf"],
+        has_depth=kw["has_depth"], visual_ba=False)
+    assert nt_.dim() == 0 and abs(int(nt_) - int(nj)) <= 2
+    a, b = jax.device_get(mj)._asdict(), tms.to_numpy(mt)
+    for k in ("kf_valid", "kf_frame_id", "kf_parent", "kf_Rcw", "kf_tcw"):
+        np.testing.assert_array_equal(b[k], np.asarray(a[k]), err_msg=k)
+    for k in ("kf_mp", "mp_valid", "mp_nobs", "obs_mat"):
+        assert (b[k] == np.asarray(a[k])).mean() >= 0.99, k
+    v = np.asarray(a["mp_valid"]) & b["mp_valid"]
+    assert np.median(np.abs(b["mp_pos"] - np.asarray(a["mp_pos"]))[v]) <= 1e-4
+    # no keyframe was culled and the inserted pose is the one given
+    np.testing.assert_array_equal(b["kf_Rcw"][int(slot)], np.asarray(Rcw))
 
 
 # ---------------------------------------------------------------------------
@@ -614,20 +631,30 @@ def test_compaction_and_reset(frames):
     assert ts.state == OK and ts.n_kf == 1
 
 
+def _identity_sim3():
+    from orb_slam3_noted_tpu_torch.geometry.sim3_solver import Sim3Result
+
+    return Sim3Result(success=torch.tensor(True), R=torch.eye(3), t=torch.zeros(3),
+                      s=torch.tensor(1.0), inliers=None, n_inliers=torch.tensor(30))
+
+
 def test_unported_entry_points_name_their_step(frames):
     # loop closing (step 2b) is ported: with it on, a stereo system builds,
     # and a keyframe's detection is queued at insertion and finished at the
-    # next frame boundary; only a correction of an inertial map raises, naming
-    # step 3
+    # next frame boundary
     lc = StereoSLAM(tcfg(enable_loop_closing=True), device=CPU)
     left, right, _ = frames[1][0]
     lc.process(left, right, 0)
     lc._maybe_close_loop(0, None)
     assert lc._pending_loops and lc.process_batch([(left, right)], [1]) is not None
     assert not lc._pending_loops and bool(lc.loop_closer.db.present[0])
+    # a correction of an inertial map (step 3) runs: the 4-DoF graph with
+    # the candidate fixed (here the only keyframe, so nothing moves)
     lc.imu_stage = 1
-    with pytest.raises(NotImplementedError, match="next steps 3"):
-        lc.loop_closer._correct(lc, 0, 0, None)
+    R0, t0 = lc.m.kf_Rcw.clone(), lc.m.kf_tcw.clone()
+    lc.loop_closer._correct(lc, 0, 0, _identity_sim3())
+    assert torch.equal(lc.m.kf_Rcw, R0) and torch.equal(lc.m.kf_tcw, t0)
+    assert lc.loop_closer._post_fuse == [0, 0]
     ts = StereoSLAM(tcfg(), device=CPU)
     assert ts.process_batch([], []) is None  # batch mode is ported (step 1)
     # relocalisation (step 2a) is ported: no result without a database, and a

@@ -259,6 +259,7 @@ def test_shared_constant_tensors_survive_a_lap(laps):
 
 
 def test_unported_paths_raise(frames):
+    from orb_slam3_noted_tpu_torch.geometry.sim3_solver import Sim3Result
     from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM, StereoSLAM
 
     ts = _torch_slam()
@@ -273,7 +274,7 @@ def test_unported_paths_raise(frames):
     assert rec.state == "NOT_INITIALIZED" and mono.ref_frame_id == 0
     # loop closing is ported (step 2b): an RGB-D system with it on builds,
     # queues each keyframe's detection on the device and finishes it at
-    # flush(); a correction of an inertial map raises naming step 3
+    # flush(); a correction of an inertial map (step 3) runs the 4-DoF graph
     lc = RGBDSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True), device=cpu)
     assert lc.loop_closer is None
     lc.process(frames[0][0], frames[0][1], 0)
@@ -283,8 +284,16 @@ def test_unported_paths_raise(frames):
     assert lc.loop_closer.db.present[0] and lc.loop_closer.loops_closed == 0
     assert lc._reloc_database() is lc.loop_closer.db
     lc.imu_stage = 1
-    with pytest.raises(NotImplementedError, match="next steps 3"):
-        lc.loop_closer._correct(lc, 0, 0, None)
+    R0 = lc.m.kf_Rcw.clone()
+    lc.loop_closer._correct(lc, 0, 0, Sim3Result(
+        success=torch.tensor(True), R=torch.eye(3), t=torch.zeros(3), s=torch.tensor(1.0),
+        inliers=None, n_inliers=torch.tensor(30)))
+    assert torch.equal(lc.m.kf_Rcw, R0) and lc.loop_closer.active_gba is not None
+    # the two-camera (fisheye) rig waits for step 4
+    from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
+    assert _second_camera(ts.cfg) == (None, None, None)
+    with pytest.raises(NotImplementedError, match="next steps 4"):
+        _second_camera(dataclasses.replace(ts.cfg, camera2=ts.cfg.camera))
     assert StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True),
                       device=cpu).loop_closer is None
     # relocalisation is ported: without a database there is no result, and a
