@@ -3,9 +3,10 @@
 A second package beside :mod:`orb_slam3_noted_tpu`, which stays the
 reference: every module here mirrors the JAX module of the same name and is
 held to it by the parity tests in ``tests/test_torch_*.py``.  Ported so far
-(``pipeline/system.py``): monocular, stereo and RGB-D SLAM with loop closing
-off, frame by frame and in batches, with the keyframe mapper, relocalisation
-(``place/``, ``optim/pnp.py``) and localisation mode.  The four kernels that
+(``pipeline/system.py``, ``pipeline/inertial_system.py``): monocular,
+stereo, fisheye stereo and RGB-D SLAM, with and without an IMU, frame by
+frame and in batches, with the keyframe mapper, relocalisation (``place/``,
+``optim/pnp.py``), loop closing and localisation mode.  The four kernels that
 the JAX package wrote in Pallas (FAST score, 7-tap blur, rBRIEF sampling,
 stereo SAD) are CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` on
 first use and bound with ``ctypes`` (``ops/cuda_kernels.py``).

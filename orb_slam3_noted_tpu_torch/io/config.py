@@ -1,11 +1,14 @@
 """Typed SLAM configuration (port of :mod:`orb_slam3_noted_tpu.io.config`).
 
 The same frozen dataclass as the JAX package, with the port's ``Camera``;
-``imu_calib`` builds the port's IMU calibration from the IMU fields.
+``imu_calib`` builds the port's IMU calibration from the IMU fields, and
+:func:`config_from` takes any configuration with the same fields (the JAX
+package's, for the parity tests), its cameras rebuilt as the port's.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -104,3 +107,16 @@ class SlamConfig:
             cov_walk_g=t(self.imu_walk_gyro ** 2 / f),
             cov_walk_a=t(self.imu_walk_acc ** 2 / f),
         )
+
+
+def config_from(other) -> SlamConfig:
+    """A :class:`SlamConfig` with every field of ``other``, a configuration
+    of the same fields (the second camera, its extrinsic and the lapping
+    areas included); a camera is rebuilt from its ``kind`` and ``params``."""
+    def field(name):
+        v = getattr(other, name)
+        if name in ("camera", "camera2") and v is not None:
+            return Camera(int(v.kind), tuple(float(p) for p in v.params))
+        return v
+
+    return SlamConfig(**{f.name: field(f.name) for f in dataclasses.fields(SlamConfig)})

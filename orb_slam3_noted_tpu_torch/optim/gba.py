@@ -17,6 +17,9 @@ sums over the observations sorted once by point (``ops/segsum.py``).  Both
 run in a fixed order, so a step gives the same result in every run on the
 card (``tests/test_torch_cuda.py``).
 
+A fisheye rig's second camera adds its two rows to every observation that
+has a right-camera pixel (``kf_xy_r``).
+
 ``SlicedGBA`` is the single-device stand-in for the reference's GBA thread:
 one LM step per frame boundary against a snapshot of the map, the deltas
 merged into the live map at the end.  The mesh-sharded variants
@@ -48,14 +51,15 @@ def pose_onehot(obs: factors.ReprojObs, K: int) -> torch.Tensor:
 
 
 def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, oh_pose,
-                 pt_order):
+                 pt_order, rig2=()):
     """Residual blocks at one linearisation point: (W (O, 6, 3), Hpp (K, 6,
     6), gp (K, 6), Hll (M, 3, 3), gl (M, 3), cost).  Fixed poses and points
-    get zeroed Jacobians, so their updates are exactly 0."""
+    get zeroed Jacobians, so their updates are exactly 0.  ``rig2`` =
+    (cam2, Rrl, trl) of a second camera, or empty."""
     K, M = Rcw.shape[0], points.shape[0]
     dtype = tcw.dtype
     r, Jp, Jl, chi2, ok, _ = factors.reproj_residuals(
-        cam, Rcw, tcw, points, obs._replace(valid=active), bf=bf)
+        cam, Rcw, tcw, points, obs._replace(valid=active), bf, *rig2)
     delta2 = chi2_threshold(obs)
     w_rob = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
     w = torch.where(ok, obs.inv_sigma2 * w_rob, 0.0)
@@ -115,7 +119,7 @@ def _schur_rhs_coupling(W, Cinv, gl, point_idx, oh_pose):
 
 
 def _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
-                 cg_iters: int, oh_pose=None, pt_order=None):
+                 cg_iters: int, oh_pose=None, pt_order=None, rig2=()):
     """One LM step; returns (Rcw, tcw, points, lam, cost).  ``oh_pose`` and
     ``pt_order`` (the observations' pose one-hot and point order) are made
     here unless the caller keeps them."""
@@ -127,7 +131,7 @@ def _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam,
     if pt_order is None:
         pt_order = segment_order(li, M, obs.valid)
     W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, points, obs, prob, active,
-                                                 use_huber, bf, oh_pose, pt_order)
+                                                 use_huber, bf, oh_pose, pt_order, rig2)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     eye3 = torch.eye(3, dtype=dtype, device=dev)
     Hpp_d = Hpp + lam * Hpp * eye6 + (1e-8 + prob.pose_fixed.to(dtype))[:, None, None] * eye6
@@ -151,25 +155,22 @@ def _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam,
     R_new = so3.normalize(R_new)
     p_new = points + dl
     cost_new = _eval_blocks(cam, R_new, t_new, p_new, obs, prob, active, use_huber, bf,
-                            oh_pose, pt_order)[-1]
+                            oh_pose, pt_order, rig2)[-1]
     better = cost_new < cost_old
     return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
             torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
             torch.where(better, cost_new, cost_old))
 
 
-def _one_camera(cfg) -> None:
-    if cfg is not None and getattr(cfg, "camera2", None) is not None:
-        raise NotImplementedError(
-            "two-camera global BA waits for the fisheye slice (ROADMAP, next steps 4)")
-
-
 def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
-                         n_iters: int = 8, n_iters_final: int = 5,
-                         cg_iters: int = 64) -> BAResult:
+                         n_iters: int = 8, n_iters_final: int = 5, cg_iters: int = 64,
+                         cam2: cam_mod.Camera | None = None, Rrl: torch.Tensor | None = None,
+                         trl: torch.Tensor | None = None) -> BAResult:
     """Full-map LM with the two-phase robust schedule of
     :func:`..optim.ba.bundle_adjust` (Huber, chi2 reclassification, plain
-    least squares), with the matrix-free Schur/PCG inner solver."""
+    least squares), with the matrix-free Schur/PCG inner solver;
+    ``cam2``/``Rrl``/``trl`` the second camera of a fisheye rig."""
+    rig2 = (cam2, Rrl, trl)
     obs = prob.obs
     oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
     pt_order = segment_order(obs.point_idx, prob.points.shape[0], obs.valid)
@@ -179,13 +180,13 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
         for _ in range(n):
             Rcw, tcw, points, lam, _ = _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active,
                                                     use_huber, lam, bf, cg_iters, oh_pose,
-                                                    pt_order)
+                                                    pt_order, rig2)
         return Rcw, tcw, points
 
     Rcw, tcw, points = phase(prob.Rcw, prob.tcw, prob.points, obs.valid, True, n_iters)
-    active = gba_reclassify(cam, Rcw, tcw, points, obs, bf=bf)
+    active = gba_reclassify(cam, Rcw, tcw, points, obs, bf, *rig2)
     Rcw, tcw, points = phase(Rcw, tcw, points, active, False, n_iters_final)
-    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf=bf)
+    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, *rig2)
     inlier = obs.valid & ok & (chi2 <= chi2_threshold(obs))
     cost = torch.sum(torch.where(inlier, chi2, 0.0))
     return BAResult(Rcw=Rcw, tcw=tcw, points=points, chi2=chi2, inlier=inlier, cost=cost)
@@ -194,8 +195,8 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
 def full_map_problem(m, cfg, sample_stride: int = 1) -> BAProblem:
     """A ``BAProblem`` over every valid keyframe/point binding of the map.
     Gauge: the earliest valid keyframe by frame id is fixed (the reference
-    fixes keyframe 0)."""
-    _one_camera(cfg)
+    fixes keyframe 0).  With a second camera (``cfg.camera2``) its rows
+    come from ``kf_xy_r``."""
     KF, NF = m.kf_xy.shape[0], m.kf_xy.shape[1]
     MP = m.mp_pos.shape[0]
     dev = m.mp_pos.device
@@ -209,9 +210,11 @@ def full_map_problem(m, cfg, sample_stride: int = 1) -> BAProblem:
     valid = m.kf_valid[kl] & (mp_id >= 0) & m.kf_feat_valid[kl, fl] & m.mp_valid[mp_idx.long()]
     sigma2 = torch.tensor(cfg.level_sigma2, dtype=m.mp_pos.dtype, device=dev)
     uvr = m.kf_uvr[kl, fl]
+    uv2 = m.kf_xy_r[kl, fl] if cfg.camera2 is not None else None
     obs = factors.ReprojObs(
         pose_idx=k_idx, point_idx=mp_idx, uv=m.kf_xy[kl, fl], uv_r=uvr,
-        inv_sigma2=1.0 / sigma2[m.kf_level[kl, fl].long()], is_stereo=uvr >= 0, valid=valid)
+        inv_sigma2=1.0 / sigma2[m.kf_level[kl, fl].long()], is_stereo=uvr >= 0, valid=valid,
+        uv2=uv2, is_right=None if uv2 is None else uv2[:, 0] >= 0)
     fids = torch.where(m.kf_valid, m.kf_frame_id, 1 << 30)
     anchor = torch.argmin(fids)  # the first minimum, as jnp.argmin
     pose_fixed = ~m.kf_valid
@@ -223,16 +226,17 @@ def full_map_problem(m, cfg, sample_stride: int = 1) -> BAProblem:
 
 
 def gba_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf: float = 0.0,
-             cg_iters: int = 64, oh_pose=None, pt_order=None):
+             cg_iters: int = 64, oh_pose=None, pt_order=None, cam2=None, Rrl=None, trl=None):
     """One LM step of the matrix-free engine (the JAX package's
     ``gba_step_jit``): the slice ``SlicedGBA`` runs at a frame boundary."""
     return _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters,
-                        oh_pose, pt_order)
+                        oh_pose, pt_order, (cam2, Rrl, trl))
 
 
-def gba_reclassify(cam, Rcw, tcw, points, obs, bf: float = 0.0):
+def gba_reclassify(cam, Rcw, tcw, points, obs, bf: float = 0.0, cam2=None, Rrl=None, trl=None):
     """Outlier reclassification between the Huber and the plain phase."""
-    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf=bf)
+    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, cam2, Rrl,
+                                                    trl)
     return obs.valid & ok & (chi2 <= chi2_threshold(obs))
 
 
@@ -256,8 +260,11 @@ class SlicedGBA:
     ``m = g.finish(m_live)`` merges the deltas."""
 
     def __init__(self, m, cam, cfg, bf=0.0, n_iters=6, n_iters_final=4, cg_iters=48):
+        from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
+
         self.cam, self.bf, self.cg_iters = cam, bf, cg_iters
         self.n_iters, self.n_iters_final = n_iters, n_iters_final
+        self.rig2 = _second_camera(cfg, m.mp_pos.device)
         self.prob = full_map_problem(m, cfg)
         self.oh_pose = pose_onehot(self.prob.obs, m.kf_Rcw.shape[0])
         self.pt_order = segment_order(self.prob.obs.point_idx, m.mp_pos.shape[0],
@@ -277,12 +284,12 @@ class SlicedGBA:
             return
         self.Rcw, self.tcw, self.points, self.lam, _ = gba_step(
             self.cam, self.Rcw, self.tcw, self.points, self.prob.obs, self.prob, self.active,
-            self.i < self.n_iters, self.lam, bf=self.bf, cg_iters=self.cg_iters,
-            oh_pose=self.oh_pose, pt_order=self.pt_order)
+            self.i < self.n_iters, self.lam, self.bf, self.cg_iters, self.oh_pose,
+            self.pt_order, *self.rig2)
         self.i += 1
         if self.i == self.n_iters:
             self.active = gba_reclassify(self.cam, self.Rcw, self.tcw, self.points,
-                                         self.prob.obs, bf=self.bf)
+                                         self.prob.obs, self.bf, *self.rig2)
             self.lam = torch.full_like(self.lam, 1e-4)
         if self.i >= self.n_iters + self.n_iters_final:
             self.done = True
@@ -307,10 +314,11 @@ def run_global_ba(m, cam, cfg, bf: float = 0.0, n_iters: int = 8, n_iters_final:
     RunGlobalBundleAdjustment`` without keyframes created during it).
     Returns (m, cost)."""
     from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+    from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
 
     prob = full_map_problem(m, cfg)
-    res = global_bundle_adjust(cam, prob, bf=bf, n_iters=n_iters, n_iters_final=n_iters_final,
-                               cg_iters=cg_iters)
+    res = global_bundle_adjust(cam, prob, bf, n_iters, n_iters_final, cg_iters,
+                               *_second_camera(cfg, m.mp_pos.device))
     KF, MP = m.kf_Rcw.shape[0], m.mp_pos.shape[0]
     dev = m.mp_pos.device
     m = MS.apply_ba_result(m, torch.arange(KF, device=dev), m.kf_valid, res.Rcw, res.tcw,

@@ -70,9 +70,12 @@ def no_prior(dtype=torch.float32, device=None) -> VIPrior:
                    valid=torch.zeros((), dtype=torch.bool, device=device))
 
 
-def _visual_eval(cam, st, calib, points, obs, active, use_huber: bool, bf):
+def _visual_eval(cam, st, calib, points, obs, active, use_huber: bool, bf, rig2=()):
+    """The visual rows; ``rig2`` = (cam2, Rrl, trl) of a second camera, or
+    empty.  The Huber gate is the mono or stereo one, whatever rows a
+    second camera adds (as in the JAX package)."""
     r, Jp, Jl, chi2, ok = body_reproj_residuals(cam, st, calib, points,
-                                                obs._replace(valid=active), bf=bf)
+                                                obs._replace(valid=active), bf, *rig2)
     delta2 = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(chi2.dtype)
     w_rob = huber_weight(chi2, delta2) if use_huber else torch.ones_like(chi2)
     w = torch.where(ok, obs.inv_sigma2 * w_rob, 0.0)
@@ -100,7 +103,7 @@ def _inertial_eval(st, edges, prior, use_huber_inertial: bool, bpg: float, bpa: 
 
 
 def _vi_lm_step(cam, calib, st, points, prob, active, use_huber, lam, bf, use_huber_inertial,
-                bpg, bpa, orders, solve_points: bool, W):
+                bpg, bpa, orders, solve_points: bool, W, rig2=()):
     K = st.twb.shape[0]
     M = points.shape[0]
     dtype, dev = st.twb.dtype, st.twb.device
@@ -109,7 +112,7 @@ def _vi_lm_step(cam, calib, st, points, prob, active, use_huber, lam, bf, use_hu
     ei, ej = prob.edges.i.long(), prob.edges.j.long()
 
     r, Jp6, Jl, chi2, w, ok, vcost = _visual_eval(cam, st, calib, points, obs, active, use_huber,
-                                                  bf)
+                                                  bf, rig2)
     (ri, Ji, Jj, w_i), (rb, wb), (rp, Jpr), icost = _inertial_eval(
         st, prob.edges, prob.prior, use_huber_inertial, bpg, bpa, W)
     cost_old = vcost + icost
@@ -207,7 +210,7 @@ def _vi_lm_step(cam, calib, st, points, prob, active, use_huber, lam, bf, use_hu
         p_new = points + dl
     else:
         p_new = points
-    vcost_new = _visual_eval(cam, st_new, calib, p_new, obs, active, use_huber, bf)[-1]
+    vcost_new = _visual_eval(cam, st_new, calib, p_new, obs, active, use_huber, bf, rig2)[-1]
     icost_new = _inertial_eval(st_new, prob.edges, prob.prior, use_huber_inertial, bpg, bpa, W,
                                jacobians=False)[-1]
     better = (info == 0) & ((vcost_new + icost_new) < cost_old)
@@ -219,11 +222,15 @@ def _vi_lm_step(cam, calib, st, points, prob, active, use_huber, lam, bf, use_hu
 def visual_inertial_ba(cam: cam_mod.Camera, calib: Calib, prob: VIBAProblem, bf: float = 0.0,
                        n_iters: int = 5, n_iters_final: int = 5, huber_inertial: bool = True,
                        bias_prior_g: float = 0.0, bias_prior_a: float = 0.0,
-                       solve_points: bool = True) -> VIBAResult:
+                       solve_points: bool = True, cam2: cam_mod.Camera | None = None,
+                       Rrl: torch.Tensor | None = None,
+                       trl: torch.Tensor | None = None) -> VIBAResult:
     """LM over body states and landmarks with the reference's two-phase
     schedule (robust first phase, chi2 outlier cut, clean second phase).
     ``solve_points=False`` when every landmark is fixed: their Schur blocks
-    are then exactly zero and are not formed."""
+    are then exactly zero and are not formed.  ``cam2``/``Rrl``/``trl``:
+    the second camera of a fisheye rig."""
+    rig2 = (cam2, Rrl, trl)
     obs = prob.obs
     st, points = prob.state, prob.points
     K, M = st.twb.shape[0], points.shape[0]
@@ -241,15 +248,16 @@ def visual_inertial_ba(cam: cam_mod.Camera, calib: Calib, prob: VIBAProblem, bf:
         for _ in range(n):
             st, points, lam = _vi_lm_step(cam, calib, st, points, prob, active, use_huber, lam, bf,
                                           huber_inertial, bias_prior_g, bias_prior_a, orders,
-                                          solve_points, W)
+                                          solve_points, W, rig2)
         return st, points
 
     st, points = phase(st, points, obs.valid, True, n_iters)
-    _, _, _, chi2, _, ok, _ = _visual_eval(cam, st, calib, points, obs, obs.valid, True, bf)
+    _, _, _, chi2, _, ok, _ = _visual_eval(cam, st, calib, points, obs, obs.valid, True, bf, rig2)
     th = torch.where(obs.is_stereo, CHI2_STEREO, CHI2_MONO).to(chi2.dtype)
     active = obs.valid & ok & (chi2 <= th)
     st, points = phase(st, points, active, False, n_iters_final)
-    _, _, _, chi2, _, ok, vcost = _visual_eval(cam, st, calib, points, obs, obs.valid, False, bf)
+    _, _, _, chi2, _, ok, vcost = _visual_eval(cam, st, calib, points, obs, obs.valid, False, bf,
+                                               rig2)
     icost = _inertial_eval(st, prob.edges, prob.prior, huber_inertial, bias_prior_g,
                            bias_prior_a, W, jacobians=False)[-1]
     inlier = obs.valid & ok & (chi2 <= th)
@@ -268,13 +276,16 @@ class VIPoseOptResult(NamedTuple):
 
 def vi_pose_optimization(cam: cam_mod.Camera, calib: Calib, anchor: VIState, frame: VIState,
                          preint: Preintegrated, points: torch.Tensor, obs,
-                         anchor_prior: VIPrior | None = None, bf: float = 0.0) -> VIPoseOptResult:
+                         anchor_prior: VIPrior | None = None, bf: float = 0.0,
+                         cam2: cam_mod.Camera | None = None, Rrl: torch.Tensor | None = None,
+                         trl: torch.Tensor | None = None) -> VIPoseOptResult:
     """Motion-only visual-inertial pose optimisation
     (``PoseInertialOptimizationLastKeyFrame``: the anchor state fixed, pass
     ``anchor_prior=None``; ``...LastFrame``: the anchor free but held by its
     15-dim prior).  ``anchor`` and ``frame`` are single states (no K dim),
     ``preint`` the anchor -> frame preintegration, ``points`` (N, 3) the
-    matched landmarks (fixed), ``obs`` a ``PoseObs``-like table."""
+    matched landmarks (fixed), ``obs`` a ``PoseObs``-like table (with
+    ``uv2``/``is_right`` rows for ``cam2``)."""
     dtype, dev = frame.twb.dtype, frame.twb.device
     st = VIState(*(torch.stack([a, b]) for a, b in zip(anchor, frame)))
     N = points.shape[0]
@@ -282,7 +293,7 @@ def vi_pose_optimization(cam: cam_mod.Camera, calib: Calib, anchor: VIState, fra
         pose_idx=torch.ones(N, dtype=torch.int32, device=dev),
         point_idx=torch.arange(N, dtype=torch.int32, device=dev),
         uv=obs.uv, uv_r=obs.uv_r, inv_sigma2=obs.inv_sigma2, is_stereo=obs.is_stereo,
-        valid=obs.valid,
+        valid=obs.valid, uv2=getattr(obs, "uv2", None), is_right=getattr(obs, "is_right", None),
     )
     edges = InertialEdges(
         i=torch.zeros(1, dtype=torch.int32, device=dev),
@@ -295,7 +306,8 @@ def vi_pose_optimization(cam: cam_mod.Camera, calib: Calib, anchor: VIState, fra
         point_fixed=torch.ones(N, dtype=torch.bool, device=dev),
         prior=None if fixed else anchor_prior)
     res = visual_inertial_ba(cam, calib, prob, bf=bf, n_iters=4, n_iters_final=4,
-                             huber_inertial=False, solve_points=False)
+                             huber_inertial=False, solve_points=False, cam2=cam2, Rrl=Rrl,
+                             trl=trl)
     s = res.state
     return VIPoseOptResult(Rwb=s.Rwb[1], twb=s.twb[1], vel=s.vel[1], bg=s.bg[1], ba=s.ba[1],
                            inliers=res.inlier,

@@ -34,8 +34,8 @@ class PoseObs(NamedTuple):
     inv_sigma2: torch.Tensor  # (N,)
     is_stereo: torch.Tensor   # (N,) bool
     valid: torch.Tensor       # (N,) bool
-    uv2: torch.Tensor | None = None       # fisheye second camera (not ported)
-    is_right: torch.Tensor | None = None
+    uv2: torch.Tensor | None = None       # (N, 2) right-camera obs (fisheye)
+    is_right: torch.Tensor | None = None  # (N,) bool
 
 
 class PoseOptResult(NamedTuple):
@@ -55,16 +55,18 @@ def from_numpy(d: dict, device=None) -> PoseObs:
     return interop.from_numpy(PoseObs, d, device)
 
 
-def _evaluate(cam, Rcw, tcw, points, obs: PoseObs, active, use_huber: bool, bf):
-    """Residuals/Jacobian/IRLS weights/robust cost for the single pose."""
+def _evaluate(cam, Rcw, tcw, points, obs: PoseObs, active, use_huber: bool, bf, rig2=()):
+    """Residuals/Jacobian/IRLS weights/robust cost for the single pose;
+    ``rig2`` = (cam2, Rrl, trl) of a second camera, or empty."""
     n = points.shape[0]
     o = factors.ReprojObs(
         pose_idx=torch.zeros(n, dtype=torch.int32, device=points.device),
         point_idx=torch.arange(n, dtype=torch.int32, device=points.device),
         uv=obs.uv, uv_r=obs.uv_r, inv_sigma2=obs.inv_sigma2,
-        is_stereo=obs.is_stereo, valid=active,
+        is_stereo=obs.is_stereo, valid=active, uv2=obs.uv2, is_right=obs.is_right,
     )
-    r, Jp, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw[None], tcw[None], points, o, bf=bf)
+    r, Jp, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw[None], tcw[None], points, o, bf,
+                                                     *rig2)
     delta2 = chi2_threshold(obs)
     w_rob = huber_weight(chi2, delta2) if use_huber else 1.0
     w = torch.where(ok, obs.inv_sigma2 * w_rob, 0.0)
@@ -73,12 +75,12 @@ def _evaluate(cam, Rcw, tcw, points, obs: PoseObs, active, use_huber: bool, bf):
     return r, Jp, chi2, w, ok, rob_cost
 
 
-def _one_round(cam, Rcw, tcw, points, obs, active, use_huber, bf):
+def _one_round(cam, Rcw, tcw, points, obs, active, use_huber, bf, rig2=()):
     Rcw0, tcw0 = Rcw, tcw
-    cost0 = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf)[5]
+    cost0 = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf, rig2)[5]
     eye6 = torch.eye(6, dtype=points.dtype, device=points.device)
     for _ in range(N_ITERS):
-        r, Jp, _, w, _, _ = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf)
+        r, Jp, _, w, _, _ = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf, rig2)
         H = torch.einsum("oai,oaj->ij", Jp * w[:, None, None], Jp)
         g = torch.einsum("oai,oa->i", Jp, w[:, None] * r)
         Hd = H + 1e-3 * torch.diag(torch.diagonal(H)) + 1e-9 * eye6
@@ -86,12 +88,12 @@ def _one_round(cam, Rcw, tcw, points, obs, active, use_huber, bf):
         dx = solve6(Hd, -g)
         R_new, t_new = se3.compose(se3.exp(dx), (Rcw, tcw))
         Rcw, tcw = so3.normalize(R_new), t_new
-    cost1 = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf)[5]
+    cost1 = _evaluate(cam, Rcw, tcw, points, obs, active, use_huber, bf, rig2)[5]
     better = cost1 < cost0  # per-round safety: revert if the round diverged
     Rcw = torch.where(better, Rcw, Rcw0)
     tcw = torch.where(better, tcw, tcw0)
     # re-classify outliers over ALL valid observations
-    _, _, chi2, _, ok, _ = _evaluate(cam, Rcw, tcw, points, obs, obs.valid, use_huber, bf)
+    _, _, chi2, _, ok, _ = _evaluate(cam, Rcw, tcw, points, obs, obs.valid, use_huber, bf, rig2)
     active_new = obs.valid & ok & (chi2 <= chi2_threshold(obs))
     return Rcw, tcw, active_new
 
@@ -104,16 +106,17 @@ def pose_optimization(
     obs: PoseObs,
     bf: float = 0.0,
     cam2: cam_mod.Camera | None = None,
+    Rrl: torch.Tensor | None = None,
+    trl: torch.Tensor | None = None,
 ) -> PoseOptResult:
-    """Optimise one camera pose against fixed landmarks; pose + inliers."""
-    if cam2 is not None or obs.is_right is not None:
-        raise NotImplementedError(
-            "two-camera pose optimisation waits for the fisheye slice (ROADMAP, next steps 4)"
-        )
+    """Optimise one camera pose against fixed landmarks; pose + inliers.
+    ``cam2``/``Rrl``/``trl``: the second camera of a fisheye rig, whose
+    rows ``obs.uv2``/``obs.is_right`` carry."""
+    rig2 = (cam2, Rrl, trl)
     Rcw, tcw, active = Rcw0, tcw0, obs.valid
     for rnd in range(N_ROUNDS):
-        Rcw, tcw, active = _one_round(cam, Rcw, tcw, points, obs, active, rnd < 2, bf)
-    _, _, chi2, _, _, _ = _evaluate(cam, Rcw, tcw, points, obs, obs.valid, False, bf)
+        Rcw, tcw, active = _one_round(cam, Rcw, tcw, points, obs, active, rnd < 2, bf, rig2)
+    _, _, chi2, _, _, _ = _evaluate(cam, Rcw, tcw, points, obs, obs.valid, False, bf, rig2)
     return PoseOptResult(
         Rcw=Rcw, tcw=tcw, inliers=active,
         n_inliers=torch.sum(active.to(torch.int32)), chi2=chi2,

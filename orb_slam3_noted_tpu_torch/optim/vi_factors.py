@@ -76,13 +76,17 @@ def body_from_cam(Rcw: torch.Tensor, tcw: torch.Tensor, calib: Calib):
 
 
 def body_reproj_residuals(cam: cam_mod.Camera, st: VIState, calib: Calib, points: torch.Tensor,
-                          obs: factors.ReprojObs, bf: float = 0.0):
-    """Reprojection residuals with Jacobians in the body tangent: r (O, 3),
-    Jp (O, 3, 6) w.r.t. [dt, dphi] of the observing state, Jl (O, 3, 3),
-    chi2 (O,), ok (O,).  The other 9 tangent rows have zero reprojection
-    Jacobian."""
+                          obs: factors.ReprojObs, bf: float = 0.0,
+                          cam2: cam_mod.Camera | None = None, Rrl: torch.Tensor | None = None,
+                          trl: torch.Tensor | None = None):
+    """Reprojection residuals with Jacobians in the body tangent: r (O, R),
+    Jp (O, R, 6) w.r.t. [dt, dphi] of the observing state, Jl (O, R, 3),
+    chi2 (O,), ok (O,); R = 3, or 5 with a second camera (``cam2``, ``Rrl``,
+    ``trl``: a fisheye rig, the reference's two-camera ``EdgeMono``).  The
+    other 9 tangent rows have zero reprojection Jacobian."""
     Rcw, tcw = cam_from_body(st, calib)
-    r, _, Jl, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf=bf)
+    r, _, Jl, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, cam2, Rrl,
+                                                     trl)
     # x_b = Rwb^T (x_w - twb), x_c = Rcb x_b + tcb: d x_b / d dt = -I,
     # d x_b / d dphi = hat(x_b); Jl = -Jproj Rcw, so -Jproj Rcb = Jl Rwb
     pi = obs.pose_idx.long()

@@ -50,8 +50,8 @@ class WindowObs(NamedTuple):
     inv_sigma2: torch.Tensor  # (O,)
     is_stereo: torch.Tensor   # (O,) bool
     valid: torch.Tensor       # (O,) bool
-    uv2: torch.Tensor | None = None       # fisheye second camera (not ported)
-    is_right: torch.Tensor | None = None
+    uv2: torch.Tensor | None = None       # (O, 2) right-camera obs (fisheye)
+    is_right: torch.Tensor | None = None  # (O,) bool
 
 
 class WindowBAResult(NamedTuple):
@@ -71,13 +71,13 @@ def from_numpy(d: dict, device=None) -> WindowObs:
     return interop.from_numpy(WindowObs, d, device)
 
 
-def _evaluate(cam, Rcw, tcw, points, obs: WindowObs, active, use_huber: bool, bf):
+def _evaluate(cam, Rcw, tcw, points, obs: WindowObs, active, use_huber: bool, bf, rig2=()):
     robs = factors.ReprojObs(
         pose_idx=obs.pose_idx, point_idx=obs.point_idx, uv=obs.uv, uv_r=obs.uv_r,
         inv_sigma2=obs.inv_sigma2, is_stereo=obs.is_stereo, valid=active,
         uv2=obs.uv2, is_right=obs.is_right,
     )
-    r, Jp, Jl, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, robs, bf=bf)
+    r, Jp, Jl, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, robs, bf, *rig2)
     delta2 = chi2_threshold(obs)
     if use_huber:
         w = torch.where(ok, obs.inv_sigma2 * huber_weight(chi2, delta2), 0.0)
@@ -89,7 +89,7 @@ def _evaluate(cam, Rcw, tcw, points, obs: WindowObs, active, use_huber: bool, bf
 
 
 def _lm_step(cam, Rcw, tcw, points, obs, kf_slots, pose_fixed_w, point_fixed,
-             active, use_huber, lam, bf, lin, cost_old, oh_pose, seg_point, pt_order):
+             active, use_huber, lam, bf, lin, cost_old, oh_pose, seg_point, pt_order, rig2=()):
     """One cost-checked LM step with the dense reduced camera system.
 
     ``lin`` = (r, Jp, Jl, w) is the linearisation at the current state: an
@@ -160,7 +160,7 @@ def _lm_step(cam, Rcw, tcw, points, obs, kf_slots, pose_fixed_w, point_fixed,
     t_new[kf_slots] = tw_new
     p_new = points + dl
     r2, Jp2, Jl2, _, w2, _, cost_new = _evaluate(
-        cam, R_new, t_new, p_new, obs, active, use_huber, bf)
+        cam, R_new, t_new, p_new, obs, active, use_huber, bf, rig2)
     better = cost_new < cost_old
     sel = lambda a, b: torch.where(better, a, b)
     lin = tuple(sel(a, b) for a, b in zip((r2, Jp2, Jl2, w2), lin))
@@ -181,10 +181,15 @@ def window_bundle_adjust(
     bf: float = 0.0,
     n_iters: int = 5,
     n_iters_final: int = 5,
+    cam2: cam_mod.Camera | None = None,
+    Rrl: torch.Tensor | None = None,
+    trl: torch.Tensor | None = None,
 ) -> WindowBAResult:
     """Two-phase LM (Huber -> chi2 reclassify -> plain least squares) with
     cost-checked adaptive damping, as ``LocalBundleAdjustment``'s schedule
-    with kernel removal."""
+    with kernel removal.  ``cam2``/``Rrl``/``trl``: the second camera of a
+    fisheye rig, whose rows ``obs.uv2``/``obs.is_right`` carry."""
+    rig2 = (cam2, Rrl, trl)
     KW = kf_slots.shape[0]
     kf_slots = kf_slots.long()
     seg_point = obs.point_idx.long()
@@ -196,20 +201,21 @@ def window_bundle_adjust(
     def phase(Rcw, tcw, pts, active, use_huber, n):
         if n <= 0:
             return Rcw, tcw, pts
-        r0, Jp0, Jl0, _, w0, _, cost = _evaluate(cam, Rcw, tcw, pts, obs, active, use_huber, bf)
+        r0, Jp0, Jl0, _, w0, _, cost = _evaluate(cam, Rcw, tcw, pts, obs, active, use_huber, bf,
+                                                 rig2)
         lin = (r0, Jp0, Jl0, w0)
         lam = torch.tensor(1e-4, dtype=tcw.dtype, device=tcw.device)
         for _ in range(n):
             Rcw, tcw, pts, lam, lin, cost = _lm_step(
                 cam, Rcw, tcw, pts, obs, kf_slots, pose_fixed_w, point_fixed,
-                active, use_huber, lam, bf, lin, cost, oh_pose, seg_point, pt_order)
+                active, use_huber, lam, bf, lin, cost, oh_pose, seg_point, pt_order, rig2)
         return Rcw, tcw, pts
 
     Rcw, tcw, pts = phase(Rcw_full, tcw_full, points, obs.valid, True, n_iters)
-    _, _, _, chi2, _, ok, _ = _evaluate(cam, Rcw, tcw, pts, obs, obs.valid, True, bf)
+    _, _, _, chi2, _, ok, _ = _evaluate(cam, Rcw, tcw, pts, obs, obs.valid, True, bf, rig2)
     th = chi2_threshold(obs)
     active = obs.valid & ok & (chi2 <= th)
     Rcw, tcw, pts = phase(Rcw, tcw, pts, active, False, n_iters_final)
-    _, _, _, chi2, _, ok, cost = _evaluate(cam, Rcw, tcw, pts, obs, obs.valid, False, bf)
+    _, _, _, chi2, _, ok, cost = _evaluate(cam, Rcw, tcw, pts, obs, obs.valid, False, bf, rig2)
     inlier = obs.valid & ok & (chi2 <= th)
     return WindowBAResult(Rcw=Rcw, tcw=tcw, points=pts, inlier=inlier, cost=cost)

@@ -64,10 +64,12 @@ def _window_obs(m: MS.MapArrays, kf_slots, kf_mask, cfg: SlamConfig):
     valid = valid & m.mp_valid[mp_idx.long()]
     sigma2 = const_tensor(tuple(cfg.level_sigma2), m.mp_pos.dtype, dev)
     uvr = m.kf_uvr[kf_g, f_idx]
+    # a fisheye rig's second-camera pixels, -1 where there is none
+    uv2 = m.kf_xy_r[kf_g, f_idx] if cfg.camera2 is not None else None
     obs = factors.ReprojObs(
         pose_idx=k_local, point_idx=mp_idx, uv=m.kf_xy[kf_g, f_idx], uv_r=uvr,
         inv_sigma2=1.0 / sigma2[m.kf_level[kf_g, f_idx].long()], is_stereo=uvr >= 0,
-        valid=valid,
+        valid=valid, uv2=uv2, is_right=None if uv2 is None else valid & (uv2[:, 0] >= 0),
     )
     return obs, T._any_at(MP, mp_idx, valid), (kf_g, f_idx)
 
@@ -82,7 +84,6 @@ def chain_inertial_ba(m: MS.MapArrays, ki: KFInertial, kf_slots: torch.Tensor,
     segments between consecutive entries.  Covers LocalInertialBA (the
     window) and FullInertialBA (the whole chain, bias priors on).  Returns
     (m, ki) updated."""
-    T._second_camera(cfg)
     K = kf_slots.shape[0]
     dev = kf_slots.device
     dtype = m.mp_pos.dtype
@@ -113,11 +114,12 @@ def chain_inertial_ba(m: MS.MapArrays, ki: KFInertial, kf_slots: torch.Tensor,
     seen_c = seen[sel]
     pidx = obs.point_idx.long()
     obs = obs._replace(point_idx=inv[pidx], valid=obs.valid & seen[pidx])
+    cam2, Rrl, trl = T._second_camera(cfg, dev)
     prob = VIBAProblem(state=st0, points=m.mp_pos[sel], obs=obs, edges=edges,
                        pose_fixed=pose_fixed, point_fixed=~seen_c, prior=None)
     res = visual_inertial_ba(cam, calib, prob, bf=bf, n_iters=n_iters, n_iters_final=n_iters,
                              huber_inertial=True, bias_prior_g=bias_prior_g,
-                             bias_prior_a=bias_prior_a)
+                             bias_prior_a=bias_prior_a, cam2=cam2, Rrl=Rrl, trl=trl)
     st = res.state
     Rcw_n, tcw_n = cam_from_body(st, calib)
     m = MS.apply_ba_result(m, kf_slots, kf_mask, Rcw_n, tcw_n, sel, seen_c, res.points)

@@ -1,7 +1,8 @@
 """Visual-inertial SLAM systems (port of :mod:`orb_slam3_noted_tpu.pipeline.inertial_system`).
 
-``MonoInertialSLAM`` and ``StereoInertialSLAM``: the reference's IMU_MONOCULAR
-and IMU_STEREO modes.  The frame-boundary resampling of
+``MonoInertialSLAM``, ``StereoInertialSLAM`` and ``FisheyeStereoInertialSLAM``:
+the reference's IMU_MONOCULAR and IMU_STEREO modes, the latter also with two
+Kannala-Brandt cameras that are not rectified.  The frame-boundary resampling of
 ``Tracking::PreintegrateIMU`` (:func:`resample_interval`, host numpy), the
 ``PredictStateIMU`` pose prediction, visual-inertial motion-only
 optimisation (``PoseInertialOptimizationLastKeyFrame``), the staged IMU
@@ -58,6 +59,7 @@ from orb_slam3_noted_tpu_torch.pipeline.system import (
     NOT_INITIALIZED,
     OK,
     STEREO_RANGE,
+    FisheyeStereoSLAM,
     MonoSLAM,
     StereoSLAM,
     _frame,
@@ -460,7 +462,7 @@ class InertialMixin:
         return VIState(Rwb=aRwb, twb=atwb, vel=self.ki.vel[anchor_slot],
                        bg=self.ki.bg[anchor_slot], ba=self.ki.ba[anchor_slot])
 
-    def _track_inertial(self, feats, frame_id, feat_uvr=None):
+    def _track_inertial(self, feats, frame_id, feat_uvr=None, feat_uv2=None):
         cfg = self.cfg
         anchor_slot = self.kf_order[-1]
         anchor = self._anchor(anchor_slot)
@@ -471,14 +473,14 @@ class InertialMixin:
         Rcw_p, tcw_p = cam_from_body(frame0, self.calib)
         mp_mask, _ = MS.local_map_mask(self.m, anchor_slot, n_neighbors=cfg.local_window)
         obs, f_idx, vis = T.match_local_map(self.m, feats, Rcw_p, tcw_p, mp_mask, self.cam, cfg,
-                                            feat_uvr=feat_uvr)
+                                            feat_uvr=feat_uvr, feat_uv2=feat_uv2)
         # the optimiser runs on the matched rows only
         NF = feats.xy.shape[0]
         MP = self.m.mp_pos.shape[0]
         sel = topk_stable(obs.valid.to(torch.int32), NF)[1]
-        obs_c = PoseObs(*(x[sel] for x in obs[:5]))
+        obs_c = PoseObs(*(None if x is None else x[sel] for x in obs))
         res = vi_pose_optimization(self.cam, self.calib, anchor, frame0, pre, self.m.mp_pos[sel],
-                                   obs_c, bf=cfg.bf)
+                                   obs_c, None, cfg.bf, *T._second_camera(cfg, self.device))
         Rcw, tcw = cam_from_body(VIState(res.Rwb, res.twb, res.vel, res.bg, res.ba), self.calib)
         self.cur_vel = res.vel
         n_inl = int(res.n_inliers)
@@ -495,7 +497,7 @@ class InertialMixin:
 
 def vi_track_batch(m, feats_all, uvr_all, anchor_slot: int, anchor_vel, anchor_bg, anchor_ba,
                    acc, gyr, dts, n_steps: int, calib, cam, cfg: SlamConfig, bf: float,
-                   count_mask):
+                   count_mask, uv2_all=None):
     """Visual-inertial tracking of a batch of frames in one dispatch: each
     frame predicts from the shared anchor keyframe through its own
     preintegrated span (``PredictStateIMU``; the B spans are one
@@ -503,7 +505,8 @@ def vi_track_batch(m, feats_all, uvr_all, anchor_slot: int, anchor_vel, anchor_b
     ``PoseInertialOptimizationLastKeyFrame`` per frame (a Python loop over
     the batch, no host read).  ``acc``/``gyr`` (B, N, 3), ``dts`` (B, N):
     the anchor -> frame spans, stepped ``n_steps`` samples; ``count_mask``
-    (B,) the frames allowed to bump the visible/found counters.  Returns
+    (B,) the frames allowed to bump the visible/found counters; ``uv2_all``
+    (B, NF, 2) a fisheye rig's right-camera pixels, or None.  Returns
     (m, Rcw (B, 3, 3), tcw (B, 3), n_inl (B,), mp_of_feat (B, NF), body
     velocities (B, 3))."""
     anchor_Rwb, anchor_twb = body_from_cam(m.kf_Rcw[anchor_slot], m.kf_tcw[anchor_slot], calib)
@@ -527,17 +530,20 @@ def vi_track_batch(m, feats_all, uvr_all, anchor_slot: int, anchor_vel, anchor_b
     frames0 = VIState(Rwb=Rp, twb=tp, vel=vp, bg=anchor_bg.expand(B, 3), ba=anchor_ba.expand(B, 3))
     Rcw_p, tcw_p = cam_from_body(frames0, calib)
     anchor = VIState(Rwb=anchor_Rwb, twb=anchor_twb, vel=anchor_vel, bg=anchor_bg, ba=anchor_ba)
+    rig2 = T._second_camera(cfg, sel_mp.device)
     outs = []
     vis_c = torch.zeros(MPC, dtype=torch.int32, device=sel_mp.device)
     found_c = torch.zeros_like(vis_c)
     for b in range(B):
         obs, f_idx, vis = T.match_local_map(m_sub, _frame(feats_all, b), Rcw_p[b], tcw_p[b],
-                                            mask_c, cam, cfg, feat_uvr=uvr_all[b])
+                                            mask_c, cam, cfg, feat_uvr=uvr_all[b],
+                                            feat_uv2=None if uv2_all is None else uv2_all[b])
         # the optimiser's cost is linear in its rows: the matched ones only
         sel = topk_stable(obs.valid.to(torch.int32), NF)[1]
-        obs_c = PoseObs(*(x[sel] for x in obs[:5]))
+        obs_c = PoseObs(*(None if x is None else x[sel] for x in obs))
         res = vi_pose_optimization(cam, calib, anchor, VIState(*(x[b] for x in frames0)),
-                                   preint_index(pre, b), m_sub.mp_pos[sel], obs_c, bf=bf)
+                                   preint_index(pre, b), m_sub.mp_pos[sel], obs_c, None, bf,
+                                   *rig2)
         Rcw, tcw = cam_from_body(VIState(res.Rwb, res.twb, res.vel, res.bg, res.ba), calib)
         keep_c = obs_c.valid & res.inliers
         tgt = torch.where(keep_c, f_idx[sel], NF)
@@ -634,14 +640,14 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
                     and n_inl > 15 and self._can_insert_kf() and t - self.kf_times[-1] >= 0.5)
 
     def _insert_keyframe(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr=None,
-                         depth=None):
+                         depth=None, xy_r=None):
         t = getattr(self, "_cur_time", None)
         if t is None:
             t = self.last_t if self.last_t is not None else 0.0
         if self.imu_stage == 0:
             # the visual mapper
             MonoSLAM._insert_keyframe(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
-                                      uvr=uvr, depth=depth)
+                                      uvr=uvr, depth=depth, xy_r=xy_r)
             self._on_inertial_keyframe(self.last_kf_slot, t)
             return
         # the inertial mapper: one mapper pass without visual BA (insert ->
@@ -671,7 +677,7 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
                 self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
                 uvr if uvr is not None else none(), depth if depth is not None else none(),
                 self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors, bf=cfg.bf,
-                has_depth=depth is not None, visual_ba=False)
+                has_depth=depth is not None, visual_ba=False, xy_r=xy_r)
             self.n_mp = int(n_mp)
         self.kf_frame_ids[slot] = int(frame_id)
         self.last_kf_slot = slot
@@ -730,9 +736,20 @@ class StereoInertialSLAM(MonoInertialSLAM):
                 atlases=tuple(atlas._replace(image=atlas.image[i]) for i in range(2)))
         uvr = torch.where(sm.valid, sm.u_right, -1.0)
         depth = torch.where(sm.valid, sm.depth, -1.0)
+        return self._after_frontend(feats, frame_id, t, uvr, depth)
 
+    def _after_frontend(self, feats, frame_id, t, uvr, depth, xy_r=None):
+        """A pair after its front end: the stereo initialisation, or tracking
+        (visual until the IMU init, then visual-inertial with the visual
+        tracker as the fallback) and the keyframe decision.  ``uvr``: the
+        rectified right u per feature, or None; ``xy_r``: a fisheye rig's
+        right pixel per feature, or None."""
+        cfg = self.cfg
         if self.state == NOT_INITIALIZED:
-            StereoSLAM._stereo_initialize(self, feats, frame_id, uvr, depth)
+            if uvr is None:
+                uvr = torch.full((cfg.n_features,), -1.0, dtype=torch.float32,
+                                 device=self.device)
+            StereoSLAM._stereo_initialize(self, feats, frame_id, uvr, depth, xy_r=xy_r)
             if self.state == OK:
                 self.kf_order, self.kf_times = [0], [t]
                 self.kf_segments, self.seg_preints = [], []
@@ -740,11 +757,12 @@ class StereoInertialSLAM(MonoInertialSLAM):
             self._cur_time = t
             return self.trajectory[-1] if self.trajectory else None
         if self.imu_stage == 0:
-            self._track(feats, frame_id, uvr=uvr, depth=depth)
+            self._track(feats, frame_id, uvr=uvr, depth=depth, xy_r=xy_r)
         else:
-            Rcw, tcw, n_inl, mp_of_feat, _ = self._track_inertial(feats, frame_id, feat_uvr=uvr)
+            Rcw, tcw, n_inl, mp_of_feat, _ = self._track_inertial(feats, frame_id, feat_uvr=uvr,
+                                                                  feat_uv2=xy_r)
             if n_inl < cfg.min_tracked_points:
-                self._track(feats, frame_id, uvr=uvr, depth=depth)
+                self._track(feats, frame_id, uvr=uvr, depth=depth, xy_r=xy_r)
             else:
                 self.state = OK
                 self.frames_since_kf += 1
@@ -755,7 +773,7 @@ class StereoInertialSLAM(MonoInertialSLAM):
                                                  torch.sum((mp_of_feat < 0) & close)))
                 if self._need_new_kf(n_inl, tracked_close=tc, nontracked_close=ntc):
                     self._insert_keyframe(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr=uvr,
-                                          depth=depth)
+                                          depth=depth, xy_r=xy_r)
         self._try_imu_init(t)
         self._cur_time = t
         return self.trajectory[-1]
@@ -881,3 +899,38 @@ class StereoInertialSLAM(MonoInertialSLAM):
         self.last_t = tss[-1]
         self._cur_time = tss[-1]
         return self.trajectory[-1]
+
+
+class FisheyeStereoInertialSLAM(StereoInertialSLAM):
+    """Non-rectified Kannala-Brandt stereo with an IMU, the TUM-VI gate
+    configuration (reference ``IMU_STEREO`` with two ``KannalaBrandt8``
+    cameras): the fisheye front end of :class:`..system.FisheyeStereoSLAM`
+    (one atlas batch for the pair, the lapping-area match), its
+    second-camera rows through the visual-inertial pose optimisation and
+    the inertial chain BA, and the staged IMU init with the scale fixed.
+    Needs what ``FisheyeStereoSLAM`` needs."""
+
+    MIN_INIT_POINTS = 100  # the lapping overlap covers part of the frame
+
+    def __init__(self, cfg: SlamConfig, device=None):
+        super().__init__(cfg, device=device)
+        FisheyeStereoSLAM._init_rig(self)
+
+    def process(self, img_left, img_right, frame_id, t=None, acc=None, gyr=None, imu_t=None):
+        """Feed one fisheye pair at time ``t`` with the IMU samples since the
+        last frame."""
+        t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
+        feats, depth, uv2 = FisheyeStereoSLAM._fisheye_frontend(self, img_left, img_right)
+        return self._after_frontend(feats, frame_id, t, None, depth, xy_r=uv2)
+
+    def process_batch(self, imgs, frame_ids, ts=None, acc=None, gyr=None, imu_t=None):
+        """The (left, right) pairs through :meth:`process` one after another
+        (times ``ts``, default frame_id / fps), with the batch's IMU samples
+        fed first: the fisheye front end has no batched dispatch."""
+        if acc is not None:
+            self.feed_imu(acc, gyr, imu_t)
+        if ts is None:
+            ts = [float(f) / self.cfg.fps for f in frame_ids]
+        for (left, right), fid, t in zip(imgs, frame_ids, ts):
+            self.process(left, right, fid, t=t)
+        return self.trajectory[-1] if self.trajectory else None

@@ -1,12 +1,16 @@
 """SLAM system facades (port of :mod:`orb_slam3_noted_tpu.pipeline.system`).
 
-``MonoSLAM``, ``StereoSLAM`` and ``RGBDSLAM`` run full SLAM, loop closing
-included.  Monocular: two-view initialisation (``Tracking::
+``MonoSLAM``, ``StereoSLAM``, ``FisheyeStereoSLAM`` and ``RGBDSLAM`` run full
+SLAM, loop closing included.  Monocular: two-view initialisation (``Tracking::
 MonocularInitialization``, :func:`..tracking.init_attempt_batch`), the
 initial map from its triangulated points and a BA over both keyframes, then
 per frame extraction, local-map projection matching and motion-only pose
 optimisation.  Stereo and RGB-D: single-frame initialisation from depth,
-then the same tracking with stereo rows.  All three share the OK /
+then the same tracking with stereo rows.  Fisheye stereo (the TUM-VI
+configuration): a Kannala-Brandt pair that is not rectified, matched in its
+lapping areas and triangulated with the known extrinsic, the right pixel a
+second-camera row carrying ``Tlr`` (frame by frame only: the reference's
+batch path for it is at fault, ROADMAP Queue 3).  All three share the OK /
 RECENTLY_LOST / LOST state machine, the relative-pose trajectory records,
 and at every keyframe decision the synchronous mapper
 (:func:`..tracking.insert_keyframe_step`) with slot recycling and map-point
@@ -60,6 +64,7 @@ from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
 from orb_slam3_noted_tpu_torch.ops import image as I
 from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import orb as O
+from orb_slam3_noted_tpu_torch.ops.fisheye_stereo import match_fisheye_stereo
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.optim import pnp as PNP
 from orb_slam3_noted_tpu_torch.pipeline import loop_closing as LC
@@ -711,10 +716,11 @@ class MonoSLAM:
             self.reloc_db.add(slot, bow)
 
     def _insert_keyframe(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
-                         uvr=None, depth=None):
+                         uvr=None, depth=None, xy_r=None):
         """The whole mapper pass for a new keyframe
         (:func:`..tracking.insert_keyframe_step`); the host reads back the
-        new allocation pointer."""
+        new allocation pointer.  ``xy_r``: a fisheye rig's right-camera
+        pixel per feature."""
         cfg = self.cfg
         slot = self._alloc_kf_slot()
         if slot is None:
@@ -746,7 +752,7 @@ class MonoSLAM:
                 self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
                 uvr if uvr is not None else none(), depth if depth is not None else none(),
                 self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors,
-                bf=cfg.bf, has_depth=depth is not None,
+                bf=cfg.bf, has_depth=depth is not None, xy_r=xy_r,
             )
             self.n_mp = int(n_mp)
         self.kf_frame_ids[slot] = int(frame_id)
@@ -799,12 +805,13 @@ class MonoSLAM:
     def _extract(self, img: torch.Tensor) -> O.FrameFeatures:
         return O.extract_from_atlas(self._pyramid_atlas(img)[1], **self._orb_args())
 
-    def _track(self, feats, frame_id, uvr=None, depth=None):
+    def _track(self, feats, frame_id, uvr=None, depth=None, xy_r=None):
         cfg = self.cfg
         Rp, tp = self._prediction()  # constant-velocity model, else the last pose
         mp_mask, _ = MS.local_map_mask(self.m, self.last_kf_slot, n_neighbors=cfg.local_window)
         Rcw, tcw, n_inl, mp_of_feat, vis, found = T.track_frame(
             self.m, feats, Rp, tp, mp_mask, self.cam, cfg, feat_uvr=uvr, bf=cfg.bf,
+            feat_uv2=xy_r,
         )
         self._mp_remap = None  # fresh bindings against the current map
         self.m = self.m._replace(
@@ -812,10 +819,10 @@ class MonoSLAM:
             mp_found=self.m.mp_found + found.to(torch.int32),
         )
         self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, int(n_inl),
-                          mp_of_feat, uvr=uvr, depth=depth)
+                          mp_of_feat, uvr=uvr, depth=depth, xy_r=xy_r)
 
     def _after_track(self, feats, frame_id, Rp, tp, Rcw, tcw, n_inl,
-                     mp_of_feat, uvr=None, depth=None):
+                     mp_of_feat, uvr=None, depth=None, xy_r=None):
         cfg = self.cfg
         if n_inl < cfg.min_tracked_points:
             reloc = self._try_relocalize(feats, frame_id)
@@ -846,7 +853,7 @@ class MonoSLAM:
             tc, ntc = (int(c) for c in _np(counts))
         if self._need_new_kf(n_inl, tracked_close=tc, nontracked_close=ntc):
             self._insert_keyframe(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
-                                  uvr=uvr, depth=depth)
+                                  uvr=uvr, depth=depth, xy_r=xy_r)
 
     def _record(self, frame_id, Rcw, tcw, n_inl, ref_pose=None):
         """Append a trajectory record; ``ref_pose`` = (ref_slot, Rr, tr), the
@@ -975,7 +982,7 @@ class StereoSLAM(MonoSLAM):
             self._track(feats, frame_id, uvr=uvr, depth=depth)
         return self.trajectory[-1] if self.trajectory else None
 
-    def _stereo_initialize(self, feats, frame_id, uvr, depth):
+    def _stereo_initialize(self, feats, frame_id, uvr, depth, xy_r=None):
         cfg = self.cfg
         eye = torch.eye(3, dtype=torch.float32, device=self.device)
         zero = torch.zeros(3, dtype=torch.float32, device=self.device)
@@ -987,6 +994,7 @@ class StereoSLAM(MonoSLAM):
             self.m, 0, eye, zero, frame_id,
             feats.xy, feats.level, feats.angle, feats.desc, feats.valid,
             torch.full((cfg.n_features,), -1, dtype=torch.int32, device=self.device), uvr,
+            xy_r=xy_r,
         )
         self.n_kf = 1
         self.kf_frame_ids[0] = int(frame_id)
@@ -1001,6 +1009,76 @@ class StereoSLAM(MonoSLAM):
         self.tracked_at_kf = self.n_mp
         self.vel = None
         self._record(frame_id, eye, zero, self.n_mp)
+
+
+class FisheyeStereoSLAM(StereoSLAM):
+    """Non-rectified Kannala-Brandt stereo SLAM, the TUM-VI configuration.
+
+    The pair is not rectified: descriptors match inside the two cameras'
+    lapping areas and triangulate directly with the known extrinsic ``Tlr``
+    (``Frame::ComputeStereoFishEyeMatches``,
+    ``KannalaBrandt8::TriangulateMatches``; :mod:`..ops.fisheye_stereo`).
+    The triangulated left-frame depth seeds map points at metric scale, and
+    the matched right pixel becomes a second-camera observation carrying
+    ``Tlr`` through pose optimisation and BA (the reference's two-camera
+    ``EdgeMono``); there is no rectified u_right row.
+
+    Needs ``cfg.camera`` and ``cfg.camera2`` (KB8), ``cfg.tlr_r``/``tlr_t``
+    and ``cfg.lapping_l``/``lapping_r``; ``cfg.bf`` (baseline x fx) scales
+    only the close-point threshold.
+    """
+
+    MIN_INIT_POINTS = 100  # the lapping area covers only part of the frame
+
+    def __init__(self, cfg: SlamConfig, device=None):
+        super().__init__(cfg, device=device)
+        self._init_rig()
+
+    def _init_rig(self):
+        """The second camera and its pose in the left frame, on the device."""
+        if self.cfg.camera2 is None:
+            raise ValueError("fisheye stereo needs cfg.camera2")
+        self.cam2 = self.cfg.camera2
+        self.Rlr, self.tlr = (torch.from_numpy(x).to(self.device)
+                              for x in T.rig_extrinsic(self.cfg))
+
+    def process_batch(self, imgs, frame_ids):
+        raise NotImplementedError(
+            "fisheye batch mode is not ported: the reference's FisheyeStereoSLAM inherits the "
+            "rectified stereo batch hooks, which run SAD matching on unrectified fisheye images "
+            "and drop the second-camera rows (ROADMAP.md, Queue 3)"
+        )
+
+    def _fisheye_frontend(self, img_left, img_right):
+        """Both images as one atlas batch (K1, K2 and K3 once each), then the
+        lapping-area match.  Returns (left features, depth (NF,) in the left
+        camera frame or -1, uv2 (NF, 2) the matched right pixel or -1)."""
+        cfg = self.cfg
+        with torch.profiler.record_function(EXTRACTION_RANGE):
+            pair = torch.stack([self._on_device(img_left, torch.float32),
+                                self._on_device(img_right, torch.float32)])
+            both = O.extract_from_atlas(self._pyramid_atlas(pair)[1], **self._orb_args())
+            feats, feats_r = (_frame(both, i) for i in range(2))
+        with torch.profiler.record_function(STEREO_RANGE):
+            sm = match_fisheye_stereo(
+                feats, feats_r, self.cam, self.cam2, self.Rlr, self.tlr,
+                lap_l=tuple(cfg.lapping_l), lap_r=tuple(cfg.lapping_r),
+                level_sigma2=cfg.level_sigma2,
+            )
+            depth = torch.where(sm.valid, sm.depth, -1.0)
+            uv2 = torch.where(sm.valid[:, None], feats_r.xy[sm.idx_r.clamp(min=0).long()], -1.0)
+        return feats, depth, uv2
+
+    def process(self, img_left, img_right, frame_id: int):
+        """Feed one fisheye pair, (H, W) each, values in [0, 255]."""
+        feats, depth, uv2 = self._fisheye_frontend(img_left, img_right)
+        if self.state == NOT_INITIALIZED:
+            uvr = torch.full((self.cfg.n_features,), -1.0, dtype=torch.float32,
+                             device=self.device)
+            self._stereo_initialize(feats, frame_id, uvr, depth, xy_r=uv2)
+        else:
+            self._track(feats, frame_id, depth=depth, xy_r=uv2)
+        return self.trajectory[-1] if self.trajectory else None
 
 
 class RGBDSLAM(StereoSLAM):

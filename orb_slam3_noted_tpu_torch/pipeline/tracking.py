@@ -5,7 +5,9 @@ Port of :mod:`orb_slam3_noted_tpu.pipeline.tracking`.  Tracking
 point, window-gated descriptor matching, a compacted observation table for
 pose optimisation, and the wide-window retry when too few inliers survive.
 The retry is a host branch on the inlier count (one sync per frame) where
-the JAX package uses ``lax.cond``.
+the JAX package uses ``lax.cond``.  A fisheye rig (``cfg.camera2``) adds the
+right camera's two rows to every observation with a right pixel, in
+tracking, local BA and the keyframe's ``kf_xy_r`` (:func:`_second_camera`).
 
 Monocular initialisation (:func:`init_attempt_batch`): one reference frame
 against a batch of candidate frames, batched Hamming matching and two-view
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from orb_slam3_noted_tpu_torch.geometry import se3, so3
@@ -50,14 +53,26 @@ from orb_slam3_noted_tpu_torch.utils.interop import const_tensor, set_scalar
 from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 
 
-def _second_camera(cfg: SlamConfig):
-    """(cam2, Rrl, trl) for two-camera residual rows, or (None, None, None)
-    for a rectified or single-camera rig.  The two-camera (fisheye) rig
-    waits for its slice."""
+def rig_extrinsic(cfg: SlamConfig) -> tuple[np.ndarray, np.ndarray]:
+    """(Rlr (3, 3), tlr (3,)) float32: the right camera's pose in the left
+    frame, from ``cfg.tlr_r`` (identity when empty) and ``cfg.tlr_t``."""
+    Rlr = (np.asarray(cfg.tlr_r, np.float32).reshape(3, 3) if cfg.tlr_r
+           else np.eye(3, dtype=np.float32))
+    return Rlr, np.asarray(cfg.tlr_t, np.float32)
+
+
+def _second_camera(cfg: SlamConfig, device):
+    """(cam2, Rrl, trl) for two-camera residual rows, on ``device``, or
+    (None, None, None) for a rectified or single-camera rig.  The rows need
+    the left -> right transform x_r = Rlr^T (x_l - tlr)."""
     if cfg.camera2 is None:
         return None, None, None
-    raise NotImplementedError(
-        "two-camera (fisheye) residual rows are not ported yet (ROADMAP.md, next steps 4)")
+    Rlr, tlr = rig_extrinsic(cfg)
+    Rrl = Rlr.T
+    trl = -Rlr.T @ tlr
+    device = torch.device(device)
+    return (cfg.camera2, const_tensor(tuple(map(tuple, Rrl.tolist())), torch.float32, device),
+            const_tensor(tuple(trl.tolist()), torch.float32, device))
 
 
 def _scale_table(cfg: SlamConfig, like: torch.Tensor) -> torch.Tensor:
@@ -108,11 +123,14 @@ def match_local_map(
     feat_uvr: torch.Tensor | None = None,
     radius_scale: float = 1.0,
     max_dist: int = M.TH_HIGH,
+    feat_uv2: torch.Tensor | None = None,
 ):
     """Project local map points into the frame and associate features.
 
     Returns (obs: PoseObs indexed per map point, f_idx (MP,) matched feature
-    per map point, vis (MP,)).
+    per map point, vis (MP,)).  ``feat_uv2`` (NF, 2): the right-camera pixel
+    per feature of a fisheye rig (-1 for none); matched features with one
+    become two-camera observations.
     """
     uv_pred, level_pred, visible = project_map_points(
         m, Rcw_pred, tcw_pred, cam, cfg.width, cfg.height, cfg.n_levels, cfg.scale_factor,
@@ -136,27 +154,31 @@ def match_local_map(
     else:
         uvr = torch.full_like(uv_pred[:, 0], -1.0)
         is_st = torch.zeros_like(matched)
+    uv2 = is_right = None
+    if feat_uv2 is not None:
+        uv2 = feat_uv2[f_idx]
+        is_right = matched & (uv2[:, 0] >= 0)
     obs = PoseObs(
         uv=feats.xy[f_idx],
         uv_r=uvr,
         inv_sigma2=1.0 / sigma2[feats.level[f_idx].long()],
         is_stereo=is_st,
         valid=matched,
+        uv2=uv2,
+        is_right=is_right,
     )
     return obs, f_idx, vis
 
 
-def _optimize_compact(m, obs: PoseObs, R0, t0, cam, bf, n_compact):
+def _optimize_compact(m, obs: PoseObs, R0, t0, cam, bf, n_compact, rig2=(None, None, None)):
     """Pose optimisation on the matched rows only: the valid rows in map
     order first (a stable top-k of the 0/1 mask, as ``lax.top_k`` orders
-    it), then inliers scattered back per map point."""
+    it), then inliers scattered back per map point.  ``rig2`` = (cam2, Rrl,
+    trl) of a second camera."""
     MP = m.mp_pos.shape[0]
     _, sel = topk_stable(obs.valid.to(torch.int32), n_compact)
-    obs_c = PoseObs(
-        uv=obs.uv[sel], uv_r=obs.uv_r[sel], inv_sigma2=obs.inv_sigma2[sel],
-        is_stereo=obs.is_stereo[sel], valid=obs.valid[sel],
-    )
-    res = pose_optimization(cam, R0, t0, m.mp_pos[sel], obs_c, bf=bf)
+    obs_c = PoseObs(*(None if x is None else x[sel] for x in obs))
+    res = pose_optimization(cam, R0, t0, m.mp_pos[sel], obs_c, bf, *rig2)
     inl_full = torch.zeros(MP, dtype=torch.bool, device=sel.device)
     inl_full[sel] = res.inliers & obs_c.valid
     return res._replace(inliers=inl_full)
@@ -172,21 +194,25 @@ def track_frame(
     cfg: SlamConfig,
     feat_uvr: torch.Tensor | None = None,
     bf: float = 0.0,
+    feat_uv2: torch.Tensor | None = None,
 ):
     """Match local map points into the frame and optimise the pose.
 
     For stereo/RGB-D frames pass ``feat_uvr`` (right-u per feature, -1 for
-    mono features) and ``bf``.  Returns (Rcw, tcw, n_inliers, mp_of_feature
-    (NF,) int32, vis (MP,), found (MP,)).
+    mono features) and ``bf``; for a fisheye rig ``feat_uv2`` (the matched
+    right-camera pixel per feature, -1 for none).  Returns (Rcw, tcw,
+    n_inliers, mp_of_feature (NF,) int32, vis (MP,), found (MP,)).
     """
     MP = m.mp_pos.shape[0]
     NF = feats.xy.shape[0]
     NC = min(MP, max(2048, 1 << (NF - 1).bit_length()))
+    rig2 = _second_camera(cfg, m.mp_pos.device)
 
     obs, f_idx, vis = match_local_map(
         m, feats, Rcw_pred, tcw_pred, local_mp_mask, cam, cfg, feat_uvr=feat_uvr,
+        feat_uv2=feat_uv2,
     )
-    res = _optimize_compact(m, obs, Rcw_pred, tcw_pred, cam, bf, NC)
+    res = _optimize_compact(m, obs, Rcw_pred, tcw_pred, cam, bf, NC, rig2)
 
     # wide-window retry when the narrow search fails: 3x radius, re-optimise
     # from the first result if it is a usable seed, keep the better one
@@ -195,8 +221,9 @@ def track_frame(
         Rs, ts = (res.Rcw, res.tcw) if n0 >= 10 else (Rcw_pred, tcw_pred)
         obs2, f_idx2, vis2 = match_local_map(
             m, feats, Rs, ts, local_mp_mask, cam, cfg, feat_uvr=feat_uvr, radius_scale=3.0,
+            feat_uv2=feat_uv2,
         )
-        res2 = _optimize_compact(m, obs2, Rs, ts, cam, bf, NC)
+        res2 = _optimize_compact(m, obs2, Rs, ts, cam, bf, NC, rig2)
         if int(res2.n_inliers) > n0:
             res, obs, f_idx, vis = res2, obs2, f_idx2, vis2
 
@@ -429,6 +456,7 @@ def insert_keyframe_step(
     bf: float = 0.0,
     has_depth: bool = False,
     visual_ba: bool = True,
+    xy_r: torch.Tensor | None = None,   # (NF, 2) right-camera obs (fisheye) or None
 ):
     """The whole synchronous mapper pass for one keyframe
     (``LocalMapping::Run``): insert -> (stereo) depth-seeded points ->
@@ -441,7 +469,7 @@ def insert_keyframe_step(
     n_mp = torch.as_tensor(n_mp, dtype=torch.int32, device=dev)
     m = MS.add_keyframe(
         m, slot, Rcw, tcw, frame_id,
-        feats.xy, feats.level, feats.angle, feats.desc, feats.valid, mp_of_feat, uvr,
+        feats.xy, feats.level, feats.angle, feats.desc, feats.valid, mp_of_feat, uvr, xy_r=xy_r,
     )
     if has_depth:
         out = stereo_points_from_depth(m, slot, depth, cam, cfg, bf=bf)
@@ -554,6 +582,8 @@ def local_ba(
     pose_idx = torch.cat([kf_g, a_k])
     feat_idx = torch.cat([f_idx, a_f])
     uvr = m.kf_uvr[pose_idx, feat_idx]
+    cam2, Rrl, trl = _second_camera(cfg, dev)
+    uv2 = m.kf_xy_r[pose_idx, feat_idx] if cam2 is not None else None
     obs = WindowObs(
         pose_idx=pose_idx.to(i32),
         wpose_idx=torch.cat([k_local, torch.full_like(a_k, K)]).to(i32),
@@ -563,12 +593,15 @@ def local_ba(
         inv_sigma2=1.0 / sigma2[m.kf_level[pose_idx, feat_idx].long()],
         is_stereo=uvr >= 0,
         valid=torch.cat([valid, cand[sel]]),
+        uv2=uv2,
+        is_right=None if uv2 is None else uv2[:, 0] >= 0,
     )
     Rcw_pad = torch.cat([m.kf_Rcw, torch.eye(3, dtype=m.kf_Rcw.dtype, device=dev)[None]])
     tcw_pad = torch.cat([m.kf_tcw, torch.zeros((1, 3), dtype=m.kf_tcw.dtype, device=dev)])
     res = window_bundle_adjust(
         cam, Rcw_pad, tcw_pad, m.mp_pos, obs, kf_slots_w, pose_fixed_w, ~seen,
         bf=bf, n_iters=cfg.ba_iters, n_iters_final=cfg.ba_iters_final,
+        cam2=cam2, Rrl=Rrl, trl=trl,
     )
     # unbind window observations classified as outliers; rows of padded
     # entries are not valid and so change nothing

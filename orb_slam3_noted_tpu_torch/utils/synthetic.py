@@ -8,8 +8,8 @@ ray-cast per pixel with bilinear texture sampling.  Non-planar scene
 geometry keeps two-view initialization well-conditioned.
 
 Pure numpy (host-side test harness); only the pose helpers call the port's
-``so3`` on CPU float32 tensors, as the JAX package calls its own.  The
-Kannala-Brandt renderer waits for the fisheye slice (ROADMAP, next steps 4).
+``so3`` on CPU float32 tensors, and the fisheye renderer the port's KB8
+unprojection, as the JAX package calls its own.
 """
 
 from __future__ import annotations
@@ -81,6 +81,23 @@ class BoxRoom:
         gx, gy = np.meshgrid(xs, ys)
         dirs_c = np.stack([gx, gy, np.ones_like(gx)], axis=-1)  # (H, W, 3)
         return self._render_dirs(Rwc, twc, dirs_c, return_depth)
+
+    def render_fisheye(
+        self, Rwc: np.ndarray, twc: np.ndarray, cam, width, height,
+        return_depth: bool = False,
+    ):
+        """Render through a Kannala-Brandt camera model (``cam`` a
+        :class:`orb_slam3_noted_tpu_torch.models.cameras.Camera`): each
+        pixel's ray comes from the port's float32 unprojection, so images
+        agree with its KB8 geometry."""
+        import torch
+
+        from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
+
+        uu, vv = np.meshgrid(np.arange(width), np.arange(height))
+        uv = torch.from_numpy(np.stack([uu, vv], axis=-1).reshape(-1, 2).astype(np.float32))
+        rays = cam_mod.unproject(cam, uv).numpy().astype(np.float64)
+        return self._render_dirs(Rwc, twc, rays.reshape(height, width, 3), return_depth)
 
     def _render_dirs(self, Rwc, twc, dirs_c, return_depth):
         height, width = dirs_c.shape[:2]

@@ -115,46 +115,6 @@ def run_lap(mode, cfg, frames, dev, profile_range=None):
     return slam, np.asarray(ms), np.asarray(is_kf), prof
 
 
-def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
-    """Per frame and per facade range (and ``rest`` for what lies outside
-    them): kernel launches (``cudaLaunchKernel*`` calls), host-to-device
-    copies (operations whose linked device record is a ``Memcpy HtoD``,
-    listed by the chain of operations that issued them), both placed by the
-    host time of the call, and the host time of the range itself."""
-    from torch.autograd import DeviceType
-
-    events = prof.events()
-    spans = {r: sorted((e.time_range.start, e.time_range.end) for e in events
-                       if e.name == r and e.device_type == DeviceType.CPU) for r in ranges}
-
-    def where(t):
-        for r, ivs in spans.items():
-            if any(a <= t <= b for a, b in ivs):
-                return r
-        return "rest"
-
-    out = {r: {"launches": 0, "h2d_copies": 0, "h2d_from": {},
-               "host_ms": sum(b - a for a, b in spans.get(r, ())) / 1e3 / n_frames}
-           for r in (*ranges, "rest")}
-    for e in events:
-        if e.device_type == DeviceType.CPU and e.name.startswith("cudaLaunchKernel"):
-            out[where(e.time_range.start)]["launches"] += 1
-        elif (e.device_type == DeviceType.CPU
-              and any(k.name.startswith("Memcpy HtoD") for k in e.kernels)):
-            r = out[where(e.time_range.start)]
-            r["h2d_copies"] += 1
-            chain, up = [], e
-            while up is not None and len(chain) < 4:
-                chain.append(up.name)
-                up = up.cpu_parent
-            r["h2d_from"][" < ".join(chain)] = r["h2d_from"].get(" < ".join(chain), 0) + 1
-    for r in out.values():
-        r["launches"] /= n_frames
-        r["h2d_copies"] /= n_frames
-        r["h2d_from"] = {k: v / n_frames for k, v in r["h2d_from"].items()}
-    return out
-
-
 def profile_summary(prof, n_frames: int, wall_ms: float, skip: tuple) -> dict:
     """Device-busy ms, launches, kernels, idle share and the ten operations
     with the most device time, per frame, from a profile of ``n_frames``
@@ -226,7 +186,7 @@ def main_mono(args, cs, system) -> int:
     slam, _, wall_p = lap(prof, window)
     stages = system.STAGES
     inner = (system.EXTRACTION_RANGE, *system.EXTRACTION_PARTS)
-    by_stage = split_by_range(prof, stages, window)
+    by_stage = cs.split_by_range(prof, stages, window)
     # the rest's host time: the profiled window less the stages
     by_stage["rest"]["host_ms"] = wall_p * 1e3 / window - sum(
         r["host_ms"] for k, r in by_stage.items() if k != "rest")
@@ -318,7 +278,7 @@ def main_reloc(args, cs, system) -> int:
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
     _, _, wall_p, relocs = lap(prof)
     n = len(window)
-    by_stage = split_by_range(prof, system.STAGES, n)
+    by_stage = cs.split_by_range(prof, system.STAGES, n)
     by_stage["rest"]["host_ms"] = wall_p * 1e3 / n - sum(
         r["host_ms"] for k, r in by_stage.items() if k != "rest")
     plain_ms = float(np.mean([l["wall_s"] for l in laps])) * 1e3 * n / len(ids)
@@ -397,7 +357,7 @@ def main_stereo_inertial(args, cs, system) -> int:
               IS.IMU_INIT_RANGE, system.PLACE_RANGE, system.LOOP_DRAIN_RANGE)
     # chain BA nests in the keyframe insertion's caller, not in its range,
     # and in an IMU init: count each launch once, in the innermost stage
-    by_stage = split_by_range(prof, (IS.CHAIN_BA_RANGE, *[r for r in stages
+    by_stage = cs.split_by_range(prof, (IS.CHAIN_BA_RANGE, *[r for r in stages
                                                            if r != IS.CHAIN_BA_RANGE]), n_win)
     by_stage["rest"]["host_ms"] = wall_p * 1e3 / n_win - sum(
         r["host_ms"] for k, r in by_stage.items() if k != "rest")
@@ -493,8 +453,8 @@ def main() -> int:
     busy_ms = sum(dev_us(k) for k in on_device) / 1e3
     launches = sum(k.count for k in on_host if k.key.startswith("cudaLaunchKernel"))
     top = sorted(on_host, key=dev_us, reverse=True)[:10]
-    by_range = split_by_range(prof, ranges, n_prof)
-    by_part = split_by_range(prof, parts, n_prof)
+    by_range = cs.split_by_range(prof, ranges, n_prof)
+    by_part = cs.split_by_range(prof, parts, n_prof)
     by_part.pop("rest")  # everything outside extraction, and its few calls between the parts
     h2d_rows = sum(k.count for k in on_device if k.key.startswith("Memcpy HtoD")) / n_prof
     # the rest's host time: the profiled frame less the ranges

@@ -30,6 +30,13 @@ bench configuration (``scripts/loop_scaffold.py``), written to
 ``tests/fixtures/loop_4dof_full.json``, which ``--mode loop_4dof`` writes
 alone: the 4-DoF pose graph of a loop on the drifted 64-keyframe map (see
 :func:`main_loop_4dof`).
+``--mode fisheye_stereo``: the TUM-VI 512x512 fisheye lap (``TUM_512.yaml``'s
+two Kannala-Brandt cameras, a right camera rotated against the left, 1500
+features) through ``FisheyeStereoSLAM.process``, written to
+``tests/fixtures/fisheye_stereo_lap.json``; ``--mode fisheye_inertial``: the
+same 100 pairs with 200 Hz IMU through ``FisheyeStereoInertialSLAM.process``,
+written to ``tests/fixtures/fisheye_inertial_lap.json`` (see
+:func:`main_fisheye`).
 
 Writes per-frame states, inlier counts and ``positions()``, and for the
 SLAM laps the keyframe and map-point counts, to a small JSON file (default
@@ -50,6 +57,8 @@ few of them 1 ulp otherwise, which moves edge pixels of the renders)::
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode mono_loop
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode loop_correction
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode stereo_inertial
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode fisheye_stereo
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode fisheye_inertial
 """
 
 from __future__ import annotations
@@ -80,6 +89,8 @@ FIXTURES = {
     "loop_correction": ("loop_correction_full.json", 0),
     "stereo_inertial": ("stereo_inertial_lap.json", 240),
     "loop_4dof": ("loop_4dof_full.json", 0),
+    "fisheye_stereo": ("fisheye_stereo_lap.json", 100),
+    "fisheye_inertial": ("fisheye_inertial_lap.json", 100),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -206,6 +217,8 @@ def main():
         return main_loop_4dof(os.path.join(os.path.dirname(args.out), FIXTURES["loop_4dof"][0]))
     if args.mode == "loop_4dof":
         return main_loop_4dof(args.out)
+    if args.mode in ("fisheye_stereo", "fisheye_inertial"):
+        return main_fisheye(args.out, n, inertial=args.mode == "fisheye_inertial")
 
     import jax
 
@@ -976,6 +989,235 @@ def main_loop_4dof(out_path: str):
         json.dump(out, f, indent=1)
         f.write("\n")
     print(json.dumps({k: v for k, v in out.items() if k not in ("kf_Rcw", "kf_tcw")}))
+
+
+
+# ---------------------------------------------------------------------------
+# the TUM-VI fisheye lap (TUM_512.yaml: Camera1, Camera2, 512x512)
+
+FE_W = FE_H = 512
+FE_CAM1 = (190.97847715128717, 190.9733070521226, 254.93170605935475, 256.8974428996504,
+           0.0034823894022493434, 0.0007150348452162257, -0.0020532361418706202,
+           0.00020293673591811182)
+FE_CAM2 = (190.44236969414825, 190.4344384721956, 252.59949716835982, 254.91723064636983,
+           0.0034003170790442797, 0.001766278153469831, -0.00266312569781606,
+           0.0003299517423931039)
+FE_BASELINE = 0.101
+# the right camera's rotation in the left frame, exp((0.003, -0.005, 0.002)):
+# of TUM-VI's order, and not the identity, so a swapped Rlr / Rrl shows
+FE_RLR_AXIS = (0.003, -0.005, 0.002)
+FE_FPS = 20.0
+FE_IMU_HZ = 200.0
+FE_ROOM = dict(seed=5, depth=2.5, h=0.9, w=1.4)
+FE_CFG = dict(width=FE_W, height=FE_H, fps=FE_FPS, n_features=1500, n_levels=8,
+              scale_factor=1.2, ini_th_fast=20.0, min_th_fast=7.0, th_depth=40.0,
+              lapping_l=(0.0, float(FE_W)), lapping_r=(0.0, float(FE_W)),
+              max_keyframes=64, max_map_points=16384, local_window=5, kf_max_interval=4,
+              min_tracked_points=12)
+# tests/test_fisheye_inertial.py:72-85
+FE_IMU_CFG = dict(imu_init_time=0.8, imu_viba1_time=2.0, imu_viba2_time=1e9,
+                  imu_init_min_kfs=4, inertial_window=6, imu_noise_gyro=1e-4,
+                  imu_noise_acc=1e-3, imu_walk_gyro=1e-6, imu_walk_acc=1e-5,
+                  imu_freq=FE_IMU_HZ)
+
+
+def fisheye_rlr() -> np.ndarray:
+    """Rlr = exp(FE_RLR_AXIS) (Rodrigues in float64), as float32."""
+    w = np.asarray(FE_RLR_AXIS, np.float64)
+    th = np.linalg.norm(w)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return (np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K).astype(np.float32)
+
+
+def fisheye_pose(t: float):
+    """``cam_pose`` of tests/test_fisheye_inertial.py:33-43 (the JAX
+    package's so3.exp): a hand-held motion."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+
+    twc = np.array([0.20 * np.sin(3.8 * t), 0.12 * np.cos(4.6 * t) - 0.12,
+                    0.15 * np.sin(1.9 * t) + 0.06 * t])
+    Rwc = np.asarray(so3.exp(jnp.asarray([0.05 * np.sin(1.1 * t), 0.07 * np.sin(0.7 * t),
+                                          0.04 * np.cos(1.3 * t)])))
+    return Rwc, twc
+
+
+def fisheye_imu(t0: float, t1: float):
+    """``imu_between`` of tests/test_fisheye_inertial.py:46-62: exact
+    body-frame samples over (t0, t1] (the body is the left camera)."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+    from orb_slam3_noted_tpu.imu.preintegration import GRAVITY
+
+    g = np.array([0.0, 0.0, -GRAVITY])
+    eps = 1e-4
+    ts = np.arange(np.ceil(t0 * FE_IMU_HZ), np.floor(t1 * FE_IMU_HZ) + 1) / FE_IMU_HZ
+    ts = ts[(ts > t0 + 1e-12) & (ts <= t1 + 1e-12)]
+    acc, gyr = [], []
+    for t in ts:
+        Rwb, p = fisheye_pose(t)
+        Rwb_p, pp = fisheye_pose(t + eps)
+        _, pm = fisheye_pose(t - eps)
+        acc.append(Rwb.T @ ((pp - 2 * p + pm) / (eps * eps) - g))
+        gyr.append(np.asarray(so3.log(jnp.asarray(Rwb.T @ Rwb_p))) / eps)
+    return np.asarray(acc).reshape(-1, 3), np.asarray(gyr).reshape(-1, 3), ts
+
+
+def fisheye_pair(room, cam1, cam2, Rlr, Rwc, twc, with_depth: bool = False):
+    """A left/right fisheye pair: the right camera at Rwc Rlr, twc + Rwc tlr
+    (float64 arithmetic on the float32 rotations, as the port renders)."""
+    Rwc = np.asarray(Rwc, np.float64)
+    left = room.render_fisheye(Rwc, twc, cam1, FE_W, FE_H, return_depth=with_depth)
+    right = room.render_fisheye(Rwc @ Rlr.astype(np.float64),
+                                twc + Rwc @ np.array([FE_BASELINE, 0.0, 0.0]), cam2, FE_W, FE_H)
+    return left, right
+
+
+def main_fisheye(out_path: str, n: int, inertial: bool):
+    """The TUM-VI 512x512 fisheye lap in the JAX package on the CPU:
+    ``FisheyeStereoSLAM.process`` frame by frame (loop closing off), or with
+    ``inertial`` ``FisheyeStereoInertialSLAM.process`` with each frame's
+    200 Hz IMU samples.  Records per frame the state, inliers and
+    ``positions()``; keyframe count and insertions, the initial map's size;
+    frame 0's fisheye stereo matches (``idx_r``, the count, the median
+    relative depth error against the rendered depth); ATE with the first
+    pose's offset removed and after SE(3) alignment; the camera poses
+    (rotations float32) and, inertial, the IMU samples (float64, base64),
+    the frame each stage was reached at and every ``inertial_init`` solve."""
+    import jax
+    import jax.numpy as jnp
+
+    jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, KANNALA_BRANDT8
+    from orb_slam3_noted_tpu.ops import orb as O
+    from orb_slam3_noted_tpu.ops.fisheye_stereo import match_fisheye_stereo
+    from orb_slam3_noted_tpu.pipeline import inertial_system as jis
+    from orb_slam3_noted_tpu.pipeline.system import FisheyeStereoSLAM
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom
+
+    cam1, cam2 = Camera(KANNALA_BRANDT8, FE_CAM1), Camera(KANNALA_BRANDT8, FE_CAM2)
+    Rlr = fisheye_rlr()
+    cfg_kw = dict(FE_CFG, bf=FE_BASELINE * FE_CAM1[0], tlr_t=(FE_BASELINE, 0.0, 0.0),
+                  tlr_r=tuple(float(x) for x in Rlr.reshape(-1)),
+                  **(FE_IMU_CFG if inertial else {}))
+    cfg = SlamConfig(camera=cam1, camera2=cam2, **cfg_kw)
+    times = [k / FE_FPS for k in range(n)]
+    poses = [fisheye_pose(t) for t in times]
+    rwc = np.stack([R for R, _ in poses]).astype(np.float32)
+    twc = np.stack([t for _, t in poses])
+    room = BoxRoom(**FE_ROOM)
+    t0 = time.perf_counter()
+    pairs, depth0 = [], None
+    for k in range(n):
+        left, right = fisheye_pair(room, cam1, cam2, Rlr, rwc[k], twc[k], with_depth=k == 0)
+        if k == 0:
+            left, depth0 = left
+        pairs.append((left.astype(np.uint8), right.astype(np.uint8)))
+    print(f"rendered {n} pairs in {time.perf_counter() - t0:.1f} s", file=sys.stderr)
+
+    # frame 0's fisheye stereo, as the facade runs it
+    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+              th_high=cfg.ini_th_fast, th_low=cfg.min_th_fast)
+    fl = O.extract_orb(jnp.asarray(pairs[0][0], jnp.float32), **kw)
+    fr = O.extract_orb(jnp.asarray(pairs[0][1], jnp.float32), **kw)
+    sm = match_fisheye_stereo(fl, fr, cam1, cam2, jnp.asarray(Rlr),
+                              jnp.asarray(cfg.tlr_t, jnp.float32), lap_l=cfg.lapping_l,
+                              lap_r=cfg.lapping_r,
+                              level_sigma2=jnp.asarray(cfg.level_sigma2, jnp.float32))
+    valid = np.asarray(sm.valid)
+    rel = fisheye_depth_error(np.asarray(fl.xy)[valid], np.asarray(sm.depth)[valid], depth0)
+
+    chunks, stage_frame, inits = [], {}, []
+    if inertial:
+        slam = jis.FisheyeStereoInertialSLAM(cfg)
+        solve = jis.inertial_init
+
+        def recording_init(*args, **kw):
+            res = solve(*args, **kw)
+            inits.append({"stage": int(slam.imu_stage), "scale": float(res.scale),
+                          "g_world": _mat(res.g_world), "n_kf": int(len(slam.kf_order))})
+            return res
+
+        jis.inertial_init = recording_init
+        t_prev = -1.0 / FE_FPS
+        for t in times:
+            chunks.append(fisheye_imu(t_prev, t))
+            t_prev = t
+    else:
+        slam = FisheyeStereoSLAM(cfg)
+    n_mp_init = None
+    t0 = time.perf_counter()
+    for k, (left, right) in enumerate(pairs):
+        if inertial:
+            a, g, ts = chunks[k]
+            slam.process(left, right, k, t=times[k], acc=a, gyr=g, imu_t=ts)
+            stage_frame.setdefault(str(slam.imu_stage), k)
+        else:
+            slam.process(left, right, k)
+        if n_mp_init is None and slam.state == "OK":
+            n_mp_init = int(slam.n_mp)
+        if k % 10 == 9:
+            print(f"frame {k} state {slam.state} keyframes {slam.n_kf} map points {slam.n_mp} "
+                  f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    wall = time.perf_counter() - t0
+    if inertial:
+        jis.inertial_init = solve
+
+    est = slam.positions()
+    states = [r.state for r in slam.trajectory]
+    ok = np.asarray([s == "OK" for s in states])
+    err0 = np.linalg.norm((est - est[0]) - (twc - twc[0]), axis=1)
+    ate_se3 = ate_rmse(est[ok], twc[ok], with_scale=False)[0]
+    b64f = lambda x: b64(np.asarray(x, "<f8"))
+    out = {
+        "source": ("JAX FisheyeStereoInertialSLAM.process with 200 Hz IMU" if inertial else
+                   "JAX FisheyeStereoSLAM.process") + ", frame by frame, loop closing off, CPU",
+        "frames": n, "width": FE_W, "height": FE_H, "camera1": list(FE_CAM1),
+        "camera2": list(FE_CAM2), "rlr_axis": list(FE_RLR_AXIS), "room": FE_ROOM,
+        "config": {k: list(v) if isinstance(v, tuple) else v for k, v in cfg_kw.items()},
+        "states": states,
+        "n_inliers": [int(r.n_inliers) for r in slam.trajectory],
+        "positions": est.astype(float).tolist(),
+        "tracked": int(ok.sum()),
+        "n_kf": int(slam.n_kf), "kf_inserted": int(slam.kf_inserted),
+        "n_mp": int(slam.n_mp), "n_mp_init": n_mp_init,
+        "frame0_matches": int(valid.sum()),
+        "frame0_idx_r": np.asarray(sm.idx_r).astype(int).tolist(),
+        "frame0_depth_rel_median": float(np.median(rel)),
+        "ate_origin_rmse_m": float(np.sqrt(np.mean(err0[ok] ** 2))),
+        "ate_origin_max_m": float(err0[ok].max()),
+        "ate_se3_m": float(ate_se3),
+        "span_m": float(np.ptp(twc, axis=0).max()),
+        "wall_s": wall,
+        "rwc_f32": b64(rwc.astype("<f4")), "twc_f64": b64f(twc),
+    }
+    if inertial:
+        out.update({
+            "imu_stage": int(slam.imu_stage), "stage_frame": stage_frame,
+            "inertial_init": inits,
+            "imu": [{"acc": b64f(a), "gyr": b64f(g), "ts": b64f(ts), "n": int(len(ts))}
+                    for a, g, ts in chunks],
+        })
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("states", "n_inliers", "positions", "rwc_f32", "twc_f64", "imu",
+                                   "frame0_idx_r")}))
+
+
+def fisheye_depth_error(xy: np.ndarray, depth: np.ndarray, depth_map: np.ndarray) -> np.ndarray:
+    """Relative error of triangulated depths against the rendered depth map
+    at each keypoint's nearest pixel."""
+    H, W = depth_map.shape
+    gt = depth_map[np.clip(np.round(xy[:, 1]).astype(int), 0, H - 1),
+                   np.clip(np.round(xy[:, 0]).astype(int), 0, W - 1)]
+    return np.abs(depth - gt) / gt
 
 
 if __name__ == "__main__":

@@ -1,0 +1,476 @@
+"""Parity of the port's fisheye stereo slice with the JAX package on the CPU,
+float32: the Kannala-Brandt camera, ``BoxRoom.render_fisheye``, lapping-area
+stereo matching, the two-camera residual rows and the solvers that carry
+them (motion-only pose optimisation, window BA, one-device GBA), and
+``FisheyeStereoSLAM`` on the 10-frame lap of ``tests/test_fisheye_stereo.py``.
+
+Every input is made with numpy from a seed.  The right camera of the
+synthetic rigs is rotated against the left (``RLR``), so a swapped Rlr / Rrl
+would show.  Near 90 deg off the optical axis ``tan(theta)`` is
+ill-conditioned, and XLA and torch round it differently: the corner rays of
+a fisheye image (where ``kb8_unproject`` clips rd to pi/2) are held by
+their unit bearings, not their z = 1 coordinates, and renders by the share
+of pixels that come out equal.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from orb_slam3_noted_tpu.geometry import so3 as jso3
+from orb_slam3_noted_tpu.io.config import SlamConfig as JConfig
+from orb_slam3_noted_tpu.models import cameras as jcam
+from orb_slam3_noted_tpu.ops import orb as jorb
+from orb_slam3_noted_tpu.ops.fisheye_stereo import match_fisheye_stereo as jmatch
+from orb_slam3_noted_tpu.optim import factors as jfac
+from orb_slam3_noted_tpu.optim import gba as jgba
+from orb_slam3_noted_tpu.optim import pose_opt as jpo
+from orb_slam3_noted_tpu.optim import window_ba as jwba
+from orb_slam3_noted_tpu.pipeline import map_state as jms
+from orb_slam3_noted_tpu.pipeline import system as jsys
+from orb_slam3_noted_tpu.utils import synthetic as jsyn
+from orb_slam3_noted_tpu_torch.io.config import config_from
+from orb_slam3_noted_tpu_torch.models import cameras as tcam
+from orb_slam3_noted_tpu_torch.ops import orb as torb
+from orb_slam3_noted_tpu_torch.ops.fisheye_stereo import match_fisheye_stereo as tmatch
+from orb_slam3_noted_tpu_torch.optim import factors as tfac
+from orb_slam3_noted_tpu_torch.optim import gba as tgba
+from orb_slam3_noted_tpu_torch.optim import pose_opt as tpo
+from orb_slam3_noted_tpu_torch.optim import window_ba as twba
+from orb_slam3_noted_tpu_torch.pipeline import map_state as tms
+from orb_slam3_noted_tpu_torch.pipeline import system as tsys
+from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
+from orb_slam3_noted_tpu_torch.utils import synthetic as tsyn
+
+CPU = torch.device("cpu")
+W = H = 384
+# tests/test_fisheye_stereo.py's camera (TUM-VI-like, scaled to 384x384)
+KB = (160.0, 160.0, 191.5, 191.5, 0.0034, 0.00077, -0.0025, 0.00069)
+KB2 = (161.0, 159.5, 190.0, 192.5, 0.0031, 0.0011, -0.0022, 0.0004)
+BASELINE = 0.101
+RLR_AXIS = (0.003, -0.005, 0.002)
+
+PIX_TOL = 2e-4        # projections, px (measured <= 3.1e-5 at 512x512)
+JAC_TOL = 2e-5        # projection Jacobians, relative to each row's largest entry
+RAY_TOL = 1e-5        # z = 1 rays below 80 deg off the axis, relative
+BEARING_TOL = 1e-3    # unit bearings of every pixel, corners included
+# renders: the share of bit-equal float32 pixels (measured 0.983: the rays
+# differ in their last bits, which moves a bilinear texture sample by up to
+# 0.03 grey levels), of equal uint8 pixels (what the trackers consume;
+# measured 0.999993), and the largest difference in grey levels
+RENDER_SHARE, RENDER_SHARE_U8, RENDER_MAX_DIFF = 0.97, 0.9999, 0.1
+# fisheye stereo depths on identical features: the DLT's squared 3x3 system
+# amplifies last-bit differences of the rays by the inverse parallax (as in
+# tests/test_torch_mapping.py::test_triangulate_dlt): the largest and the
+# median relative difference
+DEPTH_REL, DEPTH_REL_MEDIAN = 2e-3, 5e-4
+RES_TOL = 1e-3        # residuals (px) and Jacobians, relative to the row's largest entry
+POSE_TOL = 1e-4       # optimised poses (rotation entries, metres) and points (m)
+E2E_POS_TOL_M = 2e-3  # the e2e lap's camera centres
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jax_float32():
+    """JAX in float32 as in use; torch on one thread (the test workers run
+    side by side)."""
+    prev, threads = jax.config.jax_enable_x64, torch.get_num_threads()
+    jax.config.update("jax_enable_x64", False)
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+    jax.config.update("jax_enable_x64", prev)
+
+
+def rlr() -> np.ndarray:
+    return np.array(jso3.exp(jnp.asarray(RLR_AXIS, jnp.float32)))
+
+
+def rows_close(a, b, rel, what):
+    """|a - b| within ``rel`` of each row's largest |a| (the last axis)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    scale = np.maximum(np.abs(a).max(axis=-1, keepdims=True), 1e-6)
+    err = np.abs(a - b) / scale
+    assert np.all(err <= rel), (what, float(err.max()))
+
+
+def fisheye_points(rng, n, max_deg=100.0, depth=(0.5, 5.0)):
+    """(n, 3) float32 points at angles 0 to ``max_deg`` off the optical axis."""
+    th = rng.uniform(0.0, np.deg2rad(max_deg), n)
+    ph = rng.uniform(-np.pi, np.pi, n)
+    d = rng.uniform(*depth, n)
+    return (np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], 1)
+            * d[:, None]).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the Kannala-Brandt camera
+
+def test_kb8_project_and_jacobian():
+    rng = np.random.default_rng(0)
+    x = np.concatenate([fisheye_points(rng, 400),
+                        # on the optical axis, in front and behind
+                        np.array([[0, 0, 1.0], [0, 0, 3.0], [0, 0, -2.0]], np.float32)])
+    cj, ct = jcam.Camera(jcam.KANNALA_BRANDT8, KB), tcam.Camera(tcam.KANNALA_BRANDT8, KB)
+    uv_j = np.asarray(jcam.project(cj, jnp.asarray(x)))
+    uv_t = tcam.project(ct, torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(uv_t, uv_j, rtol=0, atol=PIX_TOL)
+    np.testing.assert_allclose(uv_t[-3:], [[KB[2], KB[3]]] * 3, rtol=0, atol=PIX_TOL)
+    J_j = np.asarray(jcam.project_jac(cj, jnp.asarray(x)))
+    J_t = tcam.project_jac(ct, torch.from_numpy(x)).numpy()
+    assert np.all(np.isfinite(J_t))
+    rows_close(J_j, J_t, JAC_TOL, "project_jac")
+    # the analytic Jacobian is the derivative of the projection (central
+    # differences in float64 of the port's own function)
+    x64, h = torch.from_numpy(x[:50].astype(np.float64)), 1e-6
+    p64 = tcam.Camera(tcam.KANNALA_BRANDT8, KB).params_array(torch.float64)
+    num = torch.stack([(tcam.kb8_project(p64, x64 + h * e) - tcam.kb8_project(p64, x64 - h * e))
+                       / (2 * h) for e in torch.eye(3, dtype=torch.float64)], dim=-1)
+    rows_close(num.numpy(), tcam.kb8_project_jac(p64, x64).numpy(), 1e-5, "numerical")
+    # the dispatch tables route a pinhole camera as before
+    pc = tcam.Camera(tcam.PINHOLE, KB[:4])
+    assert torch.equal(tcam.project(pc, torch.from_numpy(x[:5])),
+                       tcam.pinhole_project(pc.params_array(), torch.from_numpy(x[:5])))
+
+
+def test_kb8_unproject_every_pixel():
+    """Every pixel of a 384x384 image.  Below 80 deg off the axis the z = 1
+    rays agree to ``RAY_TOL``; the rest, up to the corners where rd is
+    clipped to pi/2 and tan(theta) explodes, by their unit bearings."""
+    cj, ct = jcam.Camera(jcam.KANNALA_BRANDT8, KB), tcam.Camera(tcam.KANNALA_BRANDT8, KB)
+    uu, vv = np.meshgrid(np.arange(W), np.arange(H))
+    uv = np.stack([uu, vv], -1).reshape(-1, 2).astype(np.float32)
+    rj = np.asarray(jcam.unproject(cj, jnp.asarray(uv)), np.float64)
+    rt = tcam.unproject(ct, torch.from_numpy(uv)).numpy().astype(np.float64)
+    assert np.all(rt[:, 2] == 1.0) and np.all(np.isfinite(rt))
+    theta = np.arctan(np.linalg.norm(rj[:, :2], axis=1))
+    inner = theta < np.deg2rad(80.0)
+    assert inner.mean() > 0.9
+    rel = np.abs(rt - rj).max(1) / np.abs(rj).max(1)
+    assert rel[inner].max() <= RAY_TOL, rel[inner].max()
+    bj = rj / np.linalg.norm(rj, axis=1, keepdims=True)
+    bt = rt / np.linalg.norm(rt, axis=1, keepdims=True)
+    assert np.abs(bt - bj).max() <= BEARING_TOL
+    # a round trip through the port's projection lands on the pixel
+    back = tcam.project(ct, torch.from_numpy(rt[inner].astype(np.float32))).numpy()
+    np.testing.assert_allclose(back, uv[inner], rtol=0, atol=1e-2)
+
+
+def test_render_fisheye_share_of_equal_pixels():
+    room_j, room_t = jsyn.BoxRoom(seed=3, depth=2.5, h=0.8, w=1.2), tsyn.BoxRoom(
+        seed=3, depth=2.5, h=0.8, w=1.2)
+    Rwc = np.asarray(jso3.exp(jnp.asarray([0.02, 0.1, -0.03], jnp.float32)), np.float64)
+    twc = np.array([0.05, -0.02, 0.1])
+    ij, dj = room_j.render_fisheye(Rwc, twc, jcam.Camera(jcam.KANNALA_BRANDT8, KB), W, H,
+                                   return_depth=True)
+    it, dt = room_t.render_fisheye(Rwc, twc, tcam.Camera(tcam.KANNALA_BRANDT8, KB), W, H,
+                                   return_depth=True)
+    equal = ij == it
+    assert equal.mean() >= RENDER_SHARE, equal.mean()
+    assert (ij.astype(np.uint8) == it.astype(np.uint8)).mean() >= RENDER_SHARE_U8
+    assert np.abs(ij - it).max() <= RENDER_MAX_DIFF
+    np.testing.assert_allclose(dt, dj, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# lapping-area stereo matching
+
+@pytest.fixture(scope="module")
+def fisheye_pair():
+    """Frame 0 of a rotated-rig pair at 384x384 and the JAX package's ORB
+    features of both images (fed to both matchers)."""
+    cam = jcam.Camera(jcam.KANNALA_BRANDT8, KB)
+    cam2 = jcam.Camera(jcam.KANNALA_BRANDT8, KB2)
+    room = jsyn.BoxRoom(seed=3, depth=2.5, h=0.8, w=1.2)
+    R = rlr().astype(np.float64)
+    left, depth = room.render_fisheye(np.eye(3), np.zeros(3), cam, W, H, return_depth=True)
+    right = room.render_fisheye(R, np.array([BASELINE, 0.0, 0.0]), cam2, W, H)
+    kw = dict(n_features=800, n_levels=8)
+    fl = jorb.extract_orb(jnp.asarray(left.astype(np.uint8), jnp.float32), **kw)
+    fr = jorb.extract_orb(jnp.asarray(right.astype(np.uint8), jnp.float32), **kw)
+    return fl, fr, depth
+
+
+def test_match_fisheye_stereo_on_the_same_features(fisheye_pair):
+    fl, fr, depth = fisheye_pair
+    lap = (40.0, float(W) - 40.0)
+    tlr = np.array([BASELINE, 0.0, 0.0], np.float32)
+    sig = tuple(float(s) for s in jorb.level_sigma2())
+    sj = jax.device_get(jmatch(
+        fl, fr, jcam.Camera(1, KB), jcam.Camera(1, KB2), jnp.asarray(rlr()), jnp.asarray(tlr),
+        lap_l=lap, lap_r=lap, level_sigma2=jnp.asarray(sig, jnp.float32)))
+    tf = lambda f: torb.from_numpy(jax.device_get(f)._asdict())
+    st = tmatch(tf(fl), tf(fr), tcam.Camera(1, KB), tcam.Camera(1, KB2), torch.from_numpy(rlr()),
+                torch.from_numpy(tlr), lap_l=lap, lap_r=lap, level_sigma2=sig)
+    valid = np.asarray(sj.valid)
+    assert valid.sum() > 150
+    np.testing.assert_array_equal(st.idx_r.numpy(), np.asarray(sj.idx_r))
+    np.testing.assert_array_equal(st.valid.numpy(), valid)
+    rel = np.abs(st.depth.numpy()[valid] / np.asarray(sj.depth)[valid] - 1.0)
+    assert rel.max() <= DEPTH_REL and np.median(rel) <= DEPTH_REL_MEDIAN, (rel.max(),
+                                                                          np.median(rel))
+    # features outside the left lapping area have every entry masked: the
+    # argmin of such a row is its first entry in both packages, and the
+    # mutual check never passes it
+    xl = np.asarray(fl.xy)[:, 0]
+    out = (xl < lap[0]) | (xl > lap[1])
+    assert out.any() and not st.valid.numpy()[out].any()
+    big = np.full((3, 7), 1 << 20, np.int32)
+    assert torch.argmin(torch.from_numpy(big), dim=1).tolist() == np.asarray(
+        jnp.argmin(jnp.asarray(big), axis=1)).tolist() == [0, 0, 0]
+    # the depths are the rendered ones within fisheye stereo's noise
+    xy = np.asarray(fl.xy)[valid]
+    gt = depth[np.clip(np.round(xy[:, 1]).astype(int), 0, H - 1),
+               np.clip(np.round(xy[:, 0]).astype(int), 0, W - 1)]
+    assert np.median(np.abs(st.depth.numpy()[valid] - gt) / gt) < 0.12
+
+
+# ---------------------------------------------------------------------------
+# two-camera residual rows and the solvers that carry them
+
+def two_camera_problem(seed, K=3, M=80, noise=0.3, outliers=4, spread=0.1):
+    """K poses near the origin, M points around the rig (a few behind the
+    left camera, seen by the fisheye), left and right observations with
+    pixel noise, half of the rows with a right pixel, a few outliers."""
+    rng = np.random.default_rng(seed)
+    cam, cam2 = jcam.Camera(1, KB), jcam.Camera(1, KB2)
+    R = np.stack([np.asarray(jso3.exp(jnp.asarray(rng.normal(0, 0.05, 3), jnp.float32)))
+                  for _ in range(K)])
+    t = rng.normal(0, spread, (K, 3)).astype(np.float32)
+    pts_c = fisheye_points(rng, M, max_deg=95.0, depth=(1.0, 4.0))
+    pts = np.einsum("ji,mj->mi", R[0], pts_c - t[0]).astype(np.float32)
+    Rrl = rlr().T
+    trl = (-Rrl @ np.array([BASELINE, 0, 0], np.float32)).astype(np.float32)
+    pose_idx = np.repeat(np.arange(K), M).astype(np.int32)
+    point_idx = np.tile(np.arange(M), K).astype(np.int32)
+    xc = np.einsum("oij,oj->oi", R[pose_idx], pts[point_idx]) + t[pose_idx]
+    uv = np.asarray(jcam.project(cam, jnp.asarray(xc, jnp.float32)))
+    xr = xc @ Rrl.T + trl
+    uv2 = np.asarray(jcam.project(cam2, jnp.asarray(xr, jnp.float32)))
+    O = K * M
+    uv = uv + rng.normal(0, noise, uv.shape)
+    uv2 = uv2 + rng.normal(0, noise, uv2.shape)
+    bad = rng.choice(O, outliers, replace=False)
+    uv[bad] += 40.0
+    is_right = (rng.uniform(size=O) < 0.5) & (xr[:, 2] > 0.2)
+    uv2 = np.where(is_right[:, None], uv2, -1.0)
+    obs = dict(pose_idx=pose_idx, point_idx=point_idx, uv=uv.astype(np.float32),
+               uv_r=np.full(O, -1.0, np.float32),
+               inv_sigma2=(1.0 / 1.44 ** rng.integers(0, 3, O)).astype(np.float32),
+               is_stereo=np.zeros(O, bool), valid=rng.uniform(size=O) < 0.95,
+               uv2=uv2.astype(np.float32), is_right=is_right)
+    return R, t, pts, obs, Rrl, trl
+
+
+def test_two_camera_residuals():
+    R, t, pts, obs, Rrl, trl = two_camera_problem(0)
+    # perturb the state so the residuals are not only noise
+    pts = pts + np.random.default_rng(1).normal(0, 0.02, pts.shape).astype(np.float32)
+    jo = jfac.ReprojObs(**{k: jnp.asarray(v) for k, v in obs.items()})
+    to = tfac.ReprojObs(**{k: torch.from_numpy(np.asarray(v)) for k, v in obs.items()})
+    outj = jax.device_get(jfac.reproj_residuals(
+        jcam.Camera(1, KB), jnp.asarray(R), jnp.asarray(t), jnp.asarray(pts), jo,
+        cam2=jcam.Camera(1, KB2), Rrl=jnp.asarray(Rrl), trl=jnp.asarray(trl)))
+    outt = tfac.reproj_residuals(tcam.Camera(1, KB), torch.from_numpy(R), torch.from_numpy(t),
+                                 torch.from_numpy(pts), to, cam2=tcam.Camera(1, KB2),
+                                 Rrl=torch.from_numpy(Rrl), trl=torch.from_numpy(trl))
+    r, Jp, Jl, chi2, ok, rdim = (x.numpy() for x in outt)
+    assert r.shape == (len(ok), 5) and Jp.shape == (len(ok), 5, 6) and Jl.shape == (len(ok), 5, 3)
+    np.testing.assert_array_equal(ok, np.asarray(outj[4]))
+    rows_close(np.asarray(outj[0]), r, RES_TOL, "r")
+    rows_close(np.asarray(outj[1]), Jp, RES_TOL, "Jp")
+    rows_close(np.asarray(outj[2]), Jl, RES_TOL, "Jl")
+    np.testing.assert_allclose(chi2, np.asarray(outj[3]), rtol=RES_TOL, atol=1e-3)
+    np.testing.assert_array_equal(rdim, np.asarray(outj[5]))
+    # a fisheye keeps points behind the left camera; the right rows are zero
+    # where a row has no right pixel
+    xc = np.einsum("oij,oj->oi", R[obs["pose_idx"]], pts[obs["point_idx"]]) + t[obs["pose_idx"]]
+    behind = obs["valid"] & (xc[:, 2] <= 0)
+    assert behind.any() and ok[behind].all()
+    assert np.all(r[~obs["is_right"], 3:] == 0) and np.all(Jp[~obs["is_right"], 3:] == 0)
+    # the rows are each other's derivative: Jl is minus the Jacobian of h
+    # at a right row
+    k = int(np.flatnonzero(obs["is_right"] & ok)[0])
+    assert np.abs(Jl[k, 3:]).max() > 0
+
+
+def test_pose_optimization_with_right_rows():
+    R, t, pts, obs, Rrl, trl = two_camera_problem(2, K=1, M=150)
+    fields = ("uv", "uv_r", "inv_sigma2", "is_stereo", "valid", "uv2", "is_right")
+    R0 = np.asarray(jso3.exp(jnp.asarray([0.01, -0.02, 0.015], jnp.float32))) @ R[0]
+    t0 = t[0] + np.array([0.03, -0.02, 0.04], np.float32)
+    rj = jax.device_get(jpo.pose_optimization(
+        jcam.Camera(1, KB), jnp.asarray(R0), jnp.asarray(t0), jnp.asarray(pts),
+        jpo.PoseObs(**{k: jnp.asarray(obs[k]) for k in fields}), cam2=jcam.Camera(1, KB2),
+        Rrl=jnp.asarray(Rrl), trl=jnp.asarray(trl)))
+    rt = tpo.pose_optimization(
+        tcam.Camera(1, KB), torch.from_numpy(R0), torch.from_numpy(t0), torch.from_numpy(pts),
+        tpo.PoseObs(**{k: torch.from_numpy(np.asarray(obs[k])) for k in fields}),
+        cam2=tcam.Camera(1, KB2), Rrl=torch.from_numpy(Rrl), trl=torch.from_numpy(trl))
+    np.testing.assert_allclose(rt.Rcw.numpy(), np.asarray(rj.Rcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_allclose(rt.tcw.numpy(), np.asarray(rj.tcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_array_equal(rt.inliers.numpy(), np.asarray(rj.inliers))
+    # and it found the pose
+    np.testing.assert_allclose(rt.tcw.numpy(), t[0], atol=5e-3)
+
+
+def test_window_bundle_adjust_with_right_rows():
+    K, M = 3, 80
+    # poses 0.4 m apart: every point's depth is well observed, so both
+    # packages converge to the same optimum
+    R, t, pts, obs, Rrl, trl = two_camera_problem(3, K=K, M=M, spread=0.4)
+    rng = np.random.default_rng(4)
+    Rp = np.concatenate([R, np.eye(3, dtype=np.float32)[None]])
+    tp = np.concatenate([t + np.r_[[0.0]] * 0 + rng.normal(0, 0.01, t.shape).astype(np.float32)
+                         * (np.arange(K) > 0)[:, None], np.zeros((1, 3), np.float32)])
+    tp = tp.astype(np.float32)
+    pts0 = (pts + rng.normal(0, 0.01, pts.shape)).astype(np.float32)
+    w = dict(obs, wpose_idx=obs["pose_idx"].copy())
+    kf_slots = np.arange(K, dtype=np.int32)
+    fixed = np.array([True] + [False] * (K - 1))
+    pfix = np.zeros(M, bool)
+    rj = jax.device_get(jwba.window_bundle_adjust(
+        jcam.Camera(1, KB), jnp.asarray(Rp), jnp.asarray(tp), jnp.asarray(pts0),
+        jwba.WindowObs(**{k: jnp.asarray(v) for k, v in w.items()}), jnp.asarray(kf_slots),
+        jnp.asarray(fixed), jnp.asarray(pfix), n_iters=4, n_iters_final=3,
+        cam2=jcam.Camera(1, KB2), Rrl=jnp.asarray(Rrl), trl=jnp.asarray(trl)))
+    rt = twba.window_bundle_adjust(
+        tcam.Camera(1, KB), torch.from_numpy(Rp), torch.from_numpy(tp), torch.from_numpy(pts0),
+        twba.WindowObs(**{k: torch.from_numpy(np.asarray(v)) for k, v in w.items()}),
+        torch.from_numpy(kf_slots), torch.from_numpy(fixed), torch.from_numpy(pfix),
+        n_iters=4, n_iters_final=3, cam2=tcam.Camera(1, KB2), Rrl=torch.from_numpy(Rrl),
+        trl=torch.from_numpy(trl))
+    np.testing.assert_allclose(rt.Rcw.numpy(), np.asarray(rj.Rcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_allclose(rt.tcw.numpy(), np.asarray(rj.tcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_array_equal(rt.inlier.numpy(), np.asarray(rj.inlier))
+    # points that keep two inlier observations; one that keeps a single one
+    # hangs on the 0.1 m rig baseline alone, and its depth is a near-free
+    # direction that last bits move by centimetres
+    n_inl = np.bincount(obs["point_idx"], weights=rt.inlier.numpy(), minlength=M)
+    held = n_inl >= 2
+    assert held.mean() > 0.9
+    np.testing.assert_allclose(rt.points.numpy()[held], np.asarray(rj.points)[held], rtol=0,
+                               atol=10 * POSE_TOL)
+
+
+# ---------------------------------------------------------------------------
+# FisheyeStereoSLAM on the lap of tests/test_fisheye_stereo.py
+
+def _jcfg(**kw):
+    base = dict(
+        camera=jcam.Camera(1, KB), camera2=jcam.Camera(1, KB2), width=W, height=H,
+        n_features=800, bf=BASELINE * KB[0], th_depth=60.0,
+        tlr_r=tuple(float(x) for x in rlr().reshape(-1)), tlr_t=(BASELINE, 0.0, 0.0),
+        lapping_l=(0.0, float(W)), lapping_r=(0.0, float(W)),
+        max_keyframes=32, max_map_points=8192, local_window=5, kf_max_interval=6,
+    )
+    base.update(kw)
+    return JConfig(**base)
+
+
+def e2e_pairs(n=10):
+    """The 10 frames of tests/test_fisheye_stereo.py:83-106 (rendered by the
+    JAX package), with this file's rotated right camera."""
+    room = jsyn.BoxRoom(seed=5, depth=2.5, h=0.8, w=1.2)
+    R = rlr().astype(np.float64)
+    out, gt = [], []
+    for i in range(n):
+        twc = np.array([0.02 * i, 0.005 * i, 0.015 * i])
+        Rwc = np.asarray(jso3.exp(jnp.asarray([0.0, 0.01 * i, 0.0])), np.float64)
+        left = room.render_fisheye(Rwc, twc, jcam.Camera(1, KB), W, H)
+        right = room.render_fisheye(Rwc @ R, twc + Rwc @ np.array([BASELINE, 0.0, 0.0]),
+                                    jcam.Camera(1, KB2), W, H)
+        out.append((left.astype(np.uint8), right.astype(np.uint8)))
+        gt.append(twc)
+    return out, np.stack(gt)
+
+
+@pytest.fixture(scope="module")
+def e2e():
+    pairs, gt = e2e_pairs()
+    jcfg = _jcfg()
+    js = jsys.FisheyeStereoSLAM(jcfg)
+    ts = tsys.FisheyeStereoSLAM(config_from(jcfg), device=CPU)
+    for i, (left, right) in enumerate(pairs):
+        js.process(left, right, i)
+        ts.process(left, right, i)
+    return js, ts, gt, jcfg
+
+
+def test_config_from_carries_the_rig():
+    jcfg = _jcfg()
+    tcfg = config_from(jcfg)
+    assert tcfg.camera2 == tcam.Camera(tcam.KANNALA_BRANDT8, KB2)
+    assert tcfg.camera == tcam.Camera(tcam.KANNALA_BRANDT8, KB)
+    for f in ("tlr_r", "tlr_t", "lapping_l", "lapping_r", "bf", "n_features", "max_keyframes"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    cam2, Rrl, trl = _second_camera(tcfg, CPU)
+    assert cam2 == tcfg.camera2
+    np.testing.assert_allclose(Rrl.numpy(), rlr().T, atol=1e-7)
+    np.testing.assert_allclose(trl.numpy(), -rlr().T @ [BASELINE, 0, 0], atol=1e-7)
+    assert _second_camera(dataclasses.replace(tcfg, camera2=None), CPU) == (None, None, None)
+
+
+def test_fisheye_stereo_slam_lap(e2e):
+    js, ts, gt, _ = e2e
+    assert [r.state for r in ts.trajectory] == [r.state for r in js.trajectory]
+    assert sum(r.state == "OK" for r in ts.trajectory) >= len(gt) - 1
+    pj, pt = js.positions(), ts.positions()
+    np.testing.assert_allclose(pt, pj, rtol=0, atol=E2E_POS_TOL_M)
+    assert ts.n_kf == js.n_kf and abs(ts.n_mp - js.n_mp) <= 0.01 * js.n_mp
+    # metric scale from the rig: unaligned up to the first pose
+    err = np.linalg.norm((pt - pt[0]) - (gt - gt[0]), axis=1)
+    assert err.max() < 0.05 * np.linalg.norm(gt[-1] - gt[0]) + 0.02
+    # the right camera's observations entered the map (kf_xy_r rows)
+    xyr = ts.m.kf_xy_r[: ts.n_kf].numpy()
+    assert (xyr[..., 0] >= 0).sum() > 50
+    jx = np.asarray(js.m.kf_xy_r[: js.n_kf])
+    assert abs(int((xyr[..., 0] >= 0).sum()) - int((jx[..., 0] >= 0).sum())) <= 0.01 * (
+        jx[..., 0] >= 0).sum()
+
+
+def test_fisheye_batch_mode_raises(e2e):
+    """The reference's FisheyeStereoSLAM inherits the rectified batch hooks
+    (SAD matching on unrectified images, no second-camera rows): refused."""
+    _, ts, _, _ = e2e
+    with pytest.raises(NotImplementedError, match="unrectified"):
+        ts.process_batch([(None, None)], [0])
+
+
+def test_global_ba_on_the_two_camera_map(e2e):
+    """The JAX run's final map, points nudged, through one-device GBA in both
+    packages (``run_global_ba`` and ``SlicedGBA``): the right rows of every
+    keyframe feature that has one."""
+    js, _, _, jcfg = e2e
+    tcfg = config_from(jcfg)
+    d = jax.device_get(js.m)._asdict()
+    rng = np.random.default_rng(6)
+    d["mp_pos"] = (d["mp_pos"] + rng.normal(0, 0.01, d["mp_pos"].shape)).astype(np.float32)
+    jm = jms.MapArrays(**{k: jnp.asarray(v) for k, v in d.items()})
+    tm = tms.from_numpy(d, CPU)
+    jp, tp = jgba.full_map_problem(jm, jcfg), tgba.full_map_problem(tm, tcfg)
+    np.testing.assert_array_equal(tp.obs.is_right.numpy(), np.asarray(jp.obs.is_right))
+    np.testing.assert_array_equal(tp.obs.uv2.numpy(), np.asarray(jp.obs.uv2))
+    assert int((tp.obs.is_right & tp.obs.valid).sum()) > 50
+    kw = dict(bf=jcfg.bf, n_iters=2, n_iters_final=1, cg_iters=16)
+    jm2, jc = jgba.run_global_ba(jm, jcfg.camera, jcfg, **kw)
+    tm2, tc = tgba.run_global_ba(tm, tcfg.camera, tcfg, **kw)
+    np.testing.assert_allclose(tm2.kf_tcw.numpy(), np.asarray(jm2.kf_tcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_allclose(tm2.kf_Rcw.numpy(), np.asarray(jm2.kf_Rcw), rtol=0, atol=POSE_TOL)
+    np.testing.assert_allclose(tm2.mp_pos.numpy(), np.asarray(jm2.mp_pos), rtol=0,
+                               atol=10 * POSE_TOL)
+    np.testing.assert_allclose(float(tc), float(jc), rtol=1e-3)
+    jg = jgba.SlicedGBA(jm, jcfg.camera, jcfg, bf=jcfg.bf, n_iters=1, n_iters_final=1,
+                        cg_iters=16)
+    tg = tgba.SlicedGBA(tm, tcfg.camera, tcfg, bf=jcfg.bf, n_iters=1, n_iters_final=1,
+                        cg_iters=16)
+    assert tg.rig2[0] == tcfg.camera2
+    for _ in range(2):
+        jg.step()
+        tg.step()
+    np.testing.assert_allclose(tg.points.numpy(), np.asarray(jg.points), rtol=0,
+                               atol=10 * POSE_TOL)
+    np.testing.assert_array_equal(tg.active.numpy(), np.asarray(jg.active))

@@ -95,8 +95,12 @@ def test_pinhole_camera():
     _close(tcam.project_jac(ct, torch.from_numpy(x)), jcam.project_jac(cj, jnp.asarray(x)), atol=1e-3)
     uv = uv_t.numpy()
     _close(tcam.unproject(ct, torch.from_numpy(uv)), jcam.unproject(cj, jnp.asarray(uv)))
-    with pytest.raises(NotImplementedError):
-        tcam.project(tcam.Camera(tcam.KANNALA_BRANDT8, PARAMS + (0.0,) * 4), torch.from_numpy(x))
+    # a Kannala-Brandt camera dispatches to its own model (with k = 0 it is
+    # the equidistant fisheye, not the pinhole; tests/test_torch_fisheye.py)
+    kb = tcam.Camera(tcam.KANNALA_BRANDT8, PARAMS + (0.0,) * 4)
+    assert torch.equal(tcam.project(kb, torch.from_numpy(x)),
+                       tcam.kb8_project(kb.params_array(), torch.from_numpy(x)))
+    assert not torch.allclose(tcam.project(kb, torch.from_numpy(x)), uv_t)
 
 
 def test_orbit_trajectory_poses():

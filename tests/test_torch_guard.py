@@ -67,7 +67,7 @@ def test_port_names_neither_jax_nor_the_jax_package():
             "evaluation.py", "trajectory.py", "sim3.py", "sim3_solver.py", "sim3_opt.py",
             "pose_graph.py", "ba.py", "gba.py", "loop_closing.py", "preintegration.py",
             "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
-            "inertial_system.py"} <= {
+            "inertial_system.py", "fisheye_stereo.py", "cameras.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -104,14 +104,17 @@ def test_port_never_asks_for_a_gpu_or_catches_a_launch():
 
 
 @pytest.mark.parametrize("facade", ["MonoSLAM", "StereoSLAM", "RGBDSLAM", "MonoInertialSLAM",
-                                    "StereoInertialSLAM"])
+                                    "StereoInertialSLAM", "FisheyeStereoSLAM",
+                                    "FisheyeStereoInertialSLAM"])
 def test_facades_default_to_the_cuda_device(facade, monkeypatch):
     """Without a ``device`` the state goes to ``cuda``, whether or not a
     card is present: the allocation is intercepted before it happens (the
-    inertial facades are ``pipeline/inertial_system.py``'s)."""
+    inertial facades are ``pipeline/inertial_system.py``'s; the fisheye
+    ones get a second camera)."""
     import torch
 
     from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, KANNALA_BRANDT8
     from orb_slam3_noted_tpu_torch.pipeline import inertial_system, map_state
     from orb_slam3_noted_tpu_torch.pipeline import system as visual
 
@@ -127,11 +130,13 @@ def test_facades_default_to_the_cuda_device(facade, monkeypatch):
         raise Stop
 
     monkeypatch.setattr(map_state, "empty_map", empty_map)
+    cam2 = Camera(KANNALA_BRANDT8, (190.0, 190.0, 256.0, 256.0, 0.0, 0.0, 0.0, 0.0))
+    cfg = SlamConfig(enable_loop_closing=False, camera2=cam2 if "Fisheye" in facade else None)
     with pytest.raises(Stop):
-        getattr(system, facade)(SlamConfig(enable_loop_closing=False))
+        getattr(system, facade)(cfg)
     assert seen == [torch.device("cuda")]
     with pytest.raises(Stop):
-        getattr(system, facade)(SlamConfig(enable_loop_closing=False), device="cpu")
+        getattr(system, facade)(cfg, device="cpu")
     assert seen[1] == torch.device("cpu")
 
 

@@ -289,11 +289,12 @@ def test_unported_paths_raise(frames):
         success=torch.tensor(True), R=torch.eye(3), t=torch.zeros(3), s=torch.tensor(1.0),
         inliers=None, n_inliers=torch.tensor(30)))
     assert torch.equal(lc.m.kf_Rcw, R0) and lc.loop_closer.active_gba is not None
-    # the two-camera (fisheye) rig waits for step 4
+    # the two-camera (fisheye) rig is ported (step 4): a rig with a second
+    # camera gets its rows' camera and extrinsic, a single camera none
     from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
-    assert _second_camera(ts.cfg) == (None, None, None)
-    with pytest.raises(NotImplementedError, match="next steps 4"):
-        _second_camera(dataclasses.replace(ts.cfg, camera2=ts.cfg.camera))
+    assert _second_camera(ts.cfg, cpu) == (None, None, None)
+    cam2, Rrl, trl = _second_camera(dataclasses.replace(ts.cfg, camera2=ts.cfg.camera), cpu)
+    assert cam2 == ts.cfg.camera and torch.equal(Rrl, torch.eye(3)) and not trl.any()
     assert StereoSLAM(dataclasses.replace(ts.cfg, enable_loop_closing=True),
                       device=cpu).loop_closer is None
     # relocalisation is ported: without a database there is no result, and a
