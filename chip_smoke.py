@@ -144,8 +144,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
    K1, K2 and K3 over the atlas of frame 0's fisheye pair (B = 2) against
    their plain versions, timed three ways beside their bound (K2 also
    beside reflect pad + ``conv2d``; keys ``*_fisheye_pair``);
+13. the Atlas, frame by frame, on the JAX runs' two-view draws and, where
+   the pair masks agree, their merge draws (``AtlasSLAM._merge_sets``).
+   (a) ``AtlasSLAM(MonoSLAM)`` at ``bench.py``'s monocular configuration,
+   loop closing on: 48 frames of the 120-frame orbit, 11 blank frames (the
+   map switch), a revisit of poses 16-71 (a new map, merged back), held to
+   ``tests/fixtures/atlas_lap.json``: maps and merges, the merge's frame,
+   slot, candidate and RANSAC inliers, its world transform against JAX's
+   and the truth, keyframes, tracked frames, Sim(3) ATE, a query at pose
+   2's view retrieving a pre-merge keyframe, K1-K3 once a frame and K4
+   never; frames/s, ms and kernel launches of the merge.  (d) the active
+   system's checkpoint right after the merge (``io/checkpoint.py``; its
+   keys, dtypes and shapes those of the JAX run's), restored into a fresh
+   ``MonoSLAM`` on the card and run over the next 16 frames beside the
+   original: records equal.  (b) ``AtlasSLAM(StereoSLAM, fix_scale=True)``
+   at ``bench.py``'s stereo configuration: poses 0-99, ``on_sequence_end()``,
+   poses 40-89, held to ``stereo_atlas_lap.json``: one merge at scale 1
+   within 0.1 degrees and 5 mm of JAX's, tracked frames, SE(3) ATE, K1-K4
+   once a frame.  (c) ``InertialAtlasSLAM(MonoInertialSLAM)`` on
+   ``tests/test_inertial_atlas.py``'s trajectory and settings at 752x480
+   and 1200 features, the camera pitched to the floor while the lens is
+   covered (map B IMU-initialises there), with the JAX run's 200 Hz IMU
+   samples, held to ``inertial_atlas_lap.json``: map A's IMU stage frame,
+   the switch, the merge of two metric maps at scale 1 about gravity alone
+   (the JAX package tilts it: ROADMAP Queue 3), the welded chain (one
+   invalid junction segment), tracked frames after the merge, SE(3) ATE,
+   K1-K3 once a frame;
 
-after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a and 12b, every kernel against its plain
+after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b and 13a-c, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -160,6 +186,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -178,6 +205,9 @@ SI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_inertial_lap.json")
 FOURDOF_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "loop_4dof_full.json")
 FE_STEREO_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "fisheye_stereo_lap.json")
 FE_INERTIAL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "fisheye_inertial_lap.json")
+ATLAS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "atlas_lap.json")
+STEREO_ATLAS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "stereo_atlas_lap.json")
+INERTIAL_ATLAS_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "inertial_atlas_lap.json")
 
 W, H = 752, 480
 CAM_PARAMS = (458.654, 457.296, 367.215, 248.375)
@@ -264,6 +294,37 @@ FE_BATCH_FRAMES = 16
 # tracking only (the JAX run inserts its keyframes at frames 1 and 66 or so)
 FE_PROFILE_FRAMES = (10, 14)
 
+# the Atlas laps (phase 13) against the JAX runs: maps created and merges
+# equal; the merge within ATLAS_MERGE_FRAMES frames of JAX's, from the same
+# candidate keyframe or one whose frame is within ATLAS_CAND_FRAMES of it
+# (the stored map's culls can keep a neighbouring keyframe instead:
+# tests/test_torch_atlas.py measures one such swap on the CPU), its RANSAC
+# inliers at least half JAX's; merged keyframes +-2, tracked >= JAX - 3
+# (mono; -2 after the merge on the inertial lap), ATE <= 2 x JAX + 2 mm
+# (Sim(3) mono, SE(3) stereo and inertial); the inertial weld of two metric
+# maps at scale 1 with roll and pitch under ATLAS_TILT_RAD and yaw within
+# ATLAS_YAW_DEG of the yaw of JAX's world transform before its projection
+# (the JAX package projects the wrong rotation: ROADMAP Queue 3; the
+# candidate there follows a vocabulary trained on map A, and on the CPU the
+# port merged from another keyframe, 0.73 degrees and 25 cm from JAX's
+# transform, 48 inliers against 37).  The world transform of the stereo
+# merge within ATLAS_METRIC_DEG and ATLAS_METRIC_T_M of JAX's and at JAX's
+# scale (measured: 0.023 degrees, 2.7 mm on the CPU; 0 degrees, 1.6 mm on an
+# NVIDIA H100 80GB HBM3, 700.00 W); a monocular merge joins a map of two keyframes a few frames
+# apart, whose Sim(3) the RANSAC's 5%-of-depth gate leaves loose: on the
+# mono lap the JAX run's rotation is 13.2 degrees from the true one, the
+# port's on the same draws 10.9 degrees on an NVIDIA H100 80GB HBM3,
+# 700.00 W (4.9 degrees and 7.2% in scale from JAX's) and 16.7 on a CPU
+# (3.5 degrees, 5.2%), so there its distance from the true rotation is held
+# as the ATE is, to at most ATLAS_MONO_DEG_FACTOR times JAX's plus
+# ATLAS_MONO_DEG, and its scale to within ATLAS_MONO_SCALE of JAX's
+ATLAS_MERGE_FRAMES, ATLAS_CAND_FRAMES = 2, 3
+ATLAS_METRIC_DEG, ATLAS_METRIC_T_M = 0.1, 5e-3
+ATLAS_MONO_DEG_FACTOR, ATLAS_MONO_DEG, ATLAS_MONO_SCALE = 2.0, 2.0, 0.15
+ATLAS_TILT_RAD, ATLAS_YAW_DEG, ATLAS_KF_MARGIN = 1e-6, 2.0, 2
+# 13d: the checkpoint taken right after the merge, restored into a fresh
+# MonoSLAM; the next frames in the restored and the original system
+ATLAS_CKPT_FRAMES = 16
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here is float32 or integer arithmetic)
 PEAK_BYTES_PER_S = 3.35e12
@@ -455,16 +516,17 @@ _ROOM = []
 def _render_job(job):
     """One frame of a lap in ``BoxRoom(seed=0)``: ("mono", Rwc, twc) -> the
     uint8 image, ("stereo", Rwc, twc) -> (left uint8, right uint8, left depth
-    float32)."""
+    float32); ("mono_seed3", Rwc, twc) the image in ``BoxRoom(seed=3)``."""
     from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, stereo_pair
 
     if not _ROOM:
-        _ROOM.append(BoxRoom(seed=0))
+        _ROOM.extend([BoxRoom(seed=0), BoxRoom(seed=3)])
     kind, R, t = job
     if kind == "stereo":
         left, right, depth = stereo_pair(_ROOM[0], R, t, CAM_PARAMS, W, H, BASELINE)
         return left.astype(np.uint8), right.astype(np.uint8), depth.astype(np.float32)
-    return _ROOM[0].render(R, t, CAM_PARAMS, W, H).astype(np.uint8)
+    room = _ROOM[1] if kind == "mono_seed3" else _ROOM[0]
+    return room.render(R, t, CAM_PARAMS, W, H).astype(np.uint8)
 
 
 def render(jobs: list) -> list:
@@ -2688,10 +2750,465 @@ def check_fisheye_kernels(ref: dict, pair, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the Atlas
+
+
+def atlas_two_view_draws(ref: dict, own):
+    """A stand-in for ``MonoSLAM._minimal_sets`` on a frame-by-frame lap:
+    the JAX run's two-view sets for the frame (seed) where its match mask
+    equals the port's, else the port's own draw (``own``); ``stats`` counts
+    both."""
+    import base64
+
+    import torch
+
+    by_seed = {}
+    for d in ref["init_draws"]:
+        mask = np.unpackbits(np.frombuffer(base64.b64decode(d["matched"]), np.uint8),
+                             count=d["n"]).astype(bool)
+        sets = np.frombuffer(base64.b64decode(d["sets"]), "<i2").reshape(d["shape"])
+        by_seed.setdefault(d["seed"], []).append((mask, sets))
+    stats = {"calls": 0, "jax_draws": 0}
+
+    def draws(valid, seed, slam):
+        stats["calls"] += 1
+        v = valid.cpu().numpy()
+        for mask, sets in by_seed.get(int(seed), ()):
+            if np.array_equal(mask, v):
+                stats["jax_draws"] += 1
+                return torch.from_numpy(sets.astype(np.int64)).to(valid.device)
+        return own(valid, seed, slam)
+
+    draws.stats = stats
+    return draws
+
+
+def drawn_class(base, ref: dict):
+    """``base`` with its two-view draws taken from the JAX run (every map
+    the Atlas starts is an instance of it)."""
+
+    class Drawn(base):
+        def _minimal_sets(self, valid, seed):
+            return Drawn.draws(valid, seed, self)
+
+    Drawn.draws = atlas_two_view_draws(ref, lambda v, s, slam: base._minimal_sets(slam, v, s))
+    return Drawn
+
+
+class MergeWatch:
+    """Wraps an Atlas's ``_do_merge`` and ``_merge_sets``: the merge's RANSAC
+    sets are the JAX run's for the same slot and pair mask (else the port's
+    own), and each merge is timed with the card synchronised, its kernel
+    launches counted under ``torch.profiler``, and its slot, candidate,
+    inliers and world transform kept."""
+
+    def __init__(self, atlas, ref: dict, frame):
+        self.merges, self.frame, self.atlas = [], frame, atlas
+        self._sets = fixture_sim3_draws(ref["merge_attempts"], atlas._merge_sets)
+        atlas._merge_sets = self._sets
+        self._do, self._transform = atlas._do_merge, atlas._merge_transform
+        atlas._do_merge = self._do_merge
+        atlas._merge_transform = self._keep_transform
+        self._S = None
+
+    def _keep_transform(self, st, slot, cand, res):
+        S = self._transform(st, slot, cand, res)
+        self._S = S
+        return S
+
+    def _do_merge(self, st, si, slot, cand, res):
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        n_in = int(res.n_inliers)
+        self.kf0_frames = (int(st.m.kf_frame_id[0]), int(self.atlas.active.m.kf_frame_id[0]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ok = self._do(st, si, slot, cand, res)
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if ok:
+            kernels = sum(k.count for k in prof.key_averages() if k.device_type == DeviceType.CUDA)
+            R, t, s_ = (x.detach().cpu().numpy().astype(np.float64) for x in self._S)
+            self.merges.append({"frame_id": self.frame(), "slot": int(slot), "cand": int(cand),
+                                "kf_off": int(st.n_kf), "n_inliers": n_in,
+                                "ms_profiled": round(ms, 3), "kernel_launches": int(kernels),
+                                "R": R, "t": t, "s": float(s_)})
+        return ok
+
+
+def atlas_schedule_frames(ref: dict, kind: str):
+    """The lap's images by frame: ``kind`` render jobs for the fixture's
+    poses (the JAX run's camera rotations), zeros for the blank frames."""
+    rwc = b64_array(ref["rwc_f32"], "<f4", (-1, 3, 3))
+    if "twc_f64" in ref:
+        twc = b64_array(ref["twc_f64"], "<f8", (-1, 3))
+        poses = list(zip(rwc, twc))
+        keys = list(range(len(ref["frame_ids"])))
+    else:
+        from orb_slam3_noted_tpu_torch.utils.synthetic import orbit_trajectory
+
+        traj = orbit_trajectory(len(rwc), forward=0.03, yaw0=0.45)
+        poses = [(R.copy(), t) for R, (_, t) in zip(rwc, traj)]
+        keys = ref["pose_index"]
+    need = sorted({k for k, pi in zip(keys, ref["pose_index"]) if pi is not None})
+    rendered = dict(zip(need, render([(kind, poses[k][0], poses[k][1]) for k in need])))
+    return poses, [rendered.get(k) if pi is not None else None
+                   for k, pi in zip(keys, ref["pose_index"])]
+
+
+def check_merge(tag: str, got: list, ref: dict, fid_of, mono: bool = False, truth=None,
+                hold_cand: bool = True, jax_S=None, max_deg: float = ATLAS_METRIC_DEG,
+                max_t: float | None = ATLAS_METRIC_T_M) -> dict:
+    """One merge, near JAX's (frame, candidate unless ``hold_cand`` is
+    false, inliers, world transform: JAX's, or ``jax_S`` in its place; a
+    metric merge at JAX's scale, within ``max_deg`` and ``max_t`` (None: not
+    held); ``truth``: the true relative rotation of the two maps' worlds)."""
+    jm, ja = ref["merges"], ref["merge_attempts"]
+    if len(got) != 1 or len(jm) != 1:
+        raise AssertionError(f"{tag}: merges {[(m['frame_id'], m['slot'], m['cand']) for m in got]}, "
+                             f"JAX {[(m['frame_id'], m['slot'], m['cand']) for m in jm]}")
+    g, j = got[0], dict(jm[0])
+    if jax_S is not None:
+        j["R"], j["t"], j["s"] = jax_S
+    j_in = next(a["n_inliers"] for a in ja if a["success"] and a["cand"] == j["cand"]
+                and a["frame_id"] == j["frame_id"])
+    ids = ref["frame_ids"]
+    if abs(ids.index(g["frame_id"]) - ids.index(j["frame_id"])) > ATLAS_MERGE_FRAMES:
+        raise AssertionError(f"{tag}: merged at frame {g['frame_id']}, JAX at {j['frame_id']}")
+    fc_g, fc_j = fid_of(g["cand"]), j["cand_frame"]
+    if hold_cand and g["cand"] != j["cand"] and abs(fc_g - fc_j) > ATLAS_CAND_FRAMES:
+        raise AssertionError(f"{tag}: merge candidate slot {g['cand']} (frame {fc_g}), JAX "
+                             f"{j['cand']} (frame {fc_j})")
+    if g["n_inliers"] < 0.5 * j_in:
+        raise AssertionError(f"{tag}: merge RANSAC inliers {g['n_inliers']} < half JAX's {j_in}")
+    dS = max(float(np.abs(g["R"] - np.asarray(j["R"])).max()),
+             float(np.abs(g["t"] - np.asarray(j["t"])).max()), abs(g["s"] - j["s"]))
+    deg = rotation_deg(g["R"], np.asarray(j["R"]))
+    out = {"frame_id": g["frame_id"], "slot": g["slot"], "cand": g["cand"],
+           "cand_frame": fc_g, "n_inliers": g["n_inliers"], "jax": [j["frame_id"], j["slot"], j["cand"], j_in],
+           "S_vs_jax_max": dS, "R_vs_jax_deg": deg, "s": g["s"], "jax_s": j["s"],
+           "ms": g["ms_profiled"], "kernel_launches": g["kernel_launches"]}
+    if truth is not None:
+        out["R_vs_truth_deg"] = rotation_deg(g["R"], truth)
+        out["jax_R_vs_truth_deg"] = rotation_deg(np.asarray(j["R"]), truth)
+    dt = float(np.abs(g["t"] - np.asarray(j["t"])).max())
+    out["t_vs_jax_m"] = dt
+    if mono:
+        if truth is not None:
+            far = out["R_vs_truth_deg"] > (ATLAS_MONO_DEG_FACTOR * out["jax_R_vs_truth_deg"]
+                                           + ATLAS_MONO_DEG)
+        else:
+            far = deg > ATLAS_MONO_DEG
+        if far or abs(g["s"] / j["s"] - 1) > ATLAS_MONO_SCALE:
+            raise AssertionError(f"{tag}: world transform {deg:.3g} deg from JAX's, scale "
+                                 f"{g['s']:.4f} against {j['s']:.4f}; {out}")
+    elif g["s"] != j["s"] or deg > max_deg or (max_t is not None and dt > max_t):
+        raise AssertionError(f"{tag}: world transform {deg:.3g} deg, {dt:.3g} m, scale "
+                             f"{g['s']!r} from JAX's ({j['s']!r}); {out}")
+    return out
+
+
+def run_atlas_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
+    """13a and 13d.  ``AtlasSLAM(MonoSLAM)`` at ``bench.py``'s monocular
+    configuration (loop closing on) frame by frame over the kidnapped Atlas
+    lap (``tests/fixtures/atlas_lap.json``) on the JAX run's two-view and
+    merge draws; right after the merge a checkpoint of the active system,
+    which a fresh ``MonoSLAM`` restores and runs over the next
+    ``ATLAS_CKPT_FRAMES`` frames as the original does.  Returns (launch
+    counts of the lap, measurements)."""
+    import tempfile
+
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.checkpoint import load_map, save_map
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.ops import orb as O
+    from orb_slam3_noted_tpu_torch.pipeline.atlas import AtlasSLAM
+    from orb_slam3_noted_tpu_torch.pipeline.system import MonoSLAM
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    poses, imgs = atlas_schedule_frames(ref, "mono")
+    ids, pidx = ref["frame_ids"], ref["pose_index"]
+    blank = np.zeros((H, W), np.uint8)
+    cfg = mono_config(loop_closing=True)
+    Drawn = drawn_class(MonoSLAM, ref)
+    atlas = AtlasSLAM(cfg, Drawn, device=dev)
+    cur = {"frame": None}
+    watch = MergeWatch(atlas, ref, lambda: cur["frame"])
+    tmp = tempfile.mkdtemp(prefix="atlas_ckpt_")
+    ckpt = os.path.join(tmp, "map.npz")
+    ckpt_at = None
+    n_kf_a = None
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, fid in enumerate(ids):
+        cur["frame"] = fid
+        merged = atlas.merges
+        atlas.process(imgs[k] if imgs[k] is not None else blank, fid)
+        if atlas.stored and n_kf_a is None:
+            n_kf_a = atlas.stored[0].n_kf
+        if atlas.merges > merged:
+            save_map(ckpt, atlas.active)
+            ckpt_at = k
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    atlas.flush()
+    a = atlas.active
+    fid_of = lambda s: int(a.m.kf_frame_id[s])  # noqa: E731
+    # each map's world is the camera of its first keyframe
+    fa, fb = (pidx[ids.index(f)] for f in watch.kf0_frames)
+    merge = check_merge("atlas lap", watch.merges, ref, fid_of, mono=True,
+                        truth=poses[fa][0].T.astype(np.float64) @ poses[fb][0])
+
+    est = atlas.positions()
+    states = [r.state for r in atlas.trajectory]
+    ok = np.asarray([s == "OK" and p is not None for s, p in zip(states, pidx)])
+    gt = np.asarray([poses[p][1] if p is not None else np.zeros(3) for p in pidx])
+    ate, _, (_, _, scale) = ate_rmse(est[ok], gt[ok], with_scale=True)
+    tracked = int(sum(s == "OK" for s in states))
+    # the merged database retrieves a pre-merge keyframe for frame 2's view
+    q_img = torch.from_numpy(imgs[pidx.index(ref["query_pose"])]).to(dev, torch.float32)
+    q = O.extract_orb(q_img, n_features=cfg.n_features)
+    _, bow = a.loop_closer.db.compute_bow(q.desc, q.valid)
+    slots, _ = a.loop_closer.db.detect_candidates(bow, np.zeros(cfg.max_keyframes, bool),
+                                                  n_best=3, min_rel_score=0.5)
+
+    # 13d: the checkpoint, restored, against the original over the next frames
+    z = np.load(ckpt)
+    schema = {k: [str(z[k].dtype), list(z[k].shape)] for k in z.files}
+    jschema = ref["checkpoint_schema"]
+    fixed = [k for k in jschema if k.startswith("map_") or k in ("last_Rcw", "last_tcw",
+                                                                  "kf_frame_ids", "db_vocab",
+                                                                  "db_idf")]
+    if set(schema) != set(jschema) or any(schema[k][0] != jschema[k][0] for k in jschema) \
+            or any(schema[k][1] != jschema[k][1] for k in fixed) \
+            or any(schema[k][1][1:] != jschema[k][1][1:] for k in jschema):
+        diff = {k: (schema.get(k), jschema.get(k)) for k in set(schema) | set(jschema)
+                if schema.get(k) != jschema.get(k)}
+        raise AssertionError(f"atlas lap: checkpoint schema differs from the JAX run's: {diff}")
+    nxt = list(range(ckpt_at + 1, min(ckpt_at + 1 + ATLAS_CKPT_FRAMES, len(ids))))
+    restored = MonoSLAM(cfg, device=dev)
+    load_map(ckpt, restored)
+    by_fid = {r.frame_id: r for r in atlas.trajectory}
+    worst, ck_ms = 0.0, []
+    for k in nxt:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        r = restored.process(imgs[k] if imgs[k] is not None else blank, ids[k])
+        torch.cuda.synchronize()
+        ck_ms.append((time.perf_counter() - t1) * 1e3)
+        o = by_fid[ids[k]]
+        worst = max(worst, float(np.abs(r.Rcw - o.Rcw).max()), float(np.abs(r.tcw - o.tcw).max()))
+        if (r.state, r.n_inliers) != (o.state, o.n_inliers) or worst > 1e-6:
+            raise AssertionError(f"checkpoint: frame {ids[k]} restored {r.state} {r.n_inliers}, "
+                                 f"original {o.state} {o.n_inliers}, poses {worst:.3g} apart")
+    shutil.rmtree(tmp)
+
+    meas = {"fps": len(ids) / wall, "wall_s": wall, "maps_created": atlas.maps_created,
+            "merges": atlas.merges, "merge": merge, "merge_draw_stats": watch._sets.stats,
+            "two_view_draw_stats": Drawn.draws.stats, "n_kf_a": n_kf_a, "n_kf": a.n_kf,
+            "tracked": tracked, "ate_m": float(ate), "ate_scale": float(scale),
+            "query_slots": slots, "loops_closed": a.loop_closer.loops_closed,
+            "checkpoint": {"after_frame": ids[ckpt_at], "frames": len(nxt),
+                           "records_max_diff": worst, "restored_ms_median": float(np.median(ck_ms)),
+                           "keys": len(schema)}}
+    log(f"[atlas] maps {atlas.maps_created}, merge {merge} (JAX frame/slot/cand/inliers "
+        f"{merge['jax']}); stored map {n_kf_a} keyframes (JAX {ref['n_kf_a']}), merged {a.n_kf} "
+        f"(JAX {ref['merges'][0]['n_kf']}); tracked {tracked} (JAX {ref['tracked']}), Sim(3) ATE "
+        f"{ate:.5f} (JAX {ref['ate_sim3_m']:.5f}); query at pose {ref['query_pose']}: {slots} (JAX "
+        f"{ref['query_slots']}); loops {a.loop_closer.loops_closed} (JAX {ref['loops_closed']}); "
+        f"{meas['fps']:.2f} frames/s; {smi}")
+    log(f"[atlas] 13d checkpoint after frame {ids[ckpt_at]}: {len(schema)} keys as the JAX run's, "
+        f"{len(nxt)} frames restored = original (poses within {worst:.3g}); launches {launches}")
+    n = len(ids)
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"atlas lap: launch counts {launches}, expected {want}")
+    if atlas.maps_created != ref["maps_created"] or atlas.merges != ref["merges_total"]:
+        raise AssertionError(f"atlas lap: maps {atlas.maps_created}, merges {atlas.merges}; JAX "
+                             f"{ref['maps_created']}, {ref['merges_total']}")
+    if abs(a.n_kf - ref["merges"][0]["n_kf"]) > ATLAS_KF_MARGIN and \
+            abs(a.n_kf - ref["n_kf"]) > ATLAS_KF_MARGIN:
+        raise AssertionError(f"atlas lap: {a.n_kf} keyframes, JAX {ref['n_kf']}")
+    if tracked < ref["tracked"] - MONO_TRACKED_MARGIN:
+        raise AssertionError(f"atlas lap: tracked {tracked} < {ref['tracked']} - 3")
+    if ate > RMSE_FACTOR * ref["ate_sim3_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"atlas lap: ATE {ate:.5f} > 2 x {ref['ate_sim3_m']:.5f} + 2 mm")
+    if not any(s_ < n_kf_a for s_ in slots):
+        raise AssertionError(f"atlas lap: the pre-merge view retrieves {slots}, no pre-merge keyframe")
+    return launches, meas
+
+
+def run_stereo_atlas_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
+    """13b.  ``AtlasSLAM(StereoSLAM, fix_scale=True)`` at ``bench.py``'s
+    stereo configuration: two sessions over the same orbit with
+    ``on_sequence_end()`` between them, held to
+    ``tests/fixtures/stereo_atlas_lap.json``."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.atlas import AtlasSLAM
+    from orb_slam3_noted_tpu_torch.pipeline.system import StereoSLAM
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    poses, frames = atlas_schedule_frames(ref, "stereo")
+    ids, pidx = ref["frame_ids"], ref["pose_index"]
+    seq2_from = ids.index(next(f for f, p, prev in zip(ids[1:], pidx[1:], pidx) if p < prev))
+    atlas = AtlasSLAM(lap_config(), StereoSLAM, fix_scale=True, device=dev)
+    cur = {"frame": None}
+    watch = MergeWatch(atlas, ref, lambda: cur["frame"])
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, fid in enumerate(ids):
+        if k == seq2_from:
+            atlas.on_sequence_end()
+        cur["frame"] = fid
+        atlas.process(frames[k][0], frames[k][1], fid)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    a = atlas.active
+    merge = check_merge("stereo atlas lap", watch.merges, ref,
+                        lambda s: int(a.m.kf_frame_id[s]))
+    est = atlas.positions()
+    states = [r.state for r in atlas.trajectory]
+    ok = np.asarray([s == "OK" for s in states])
+    gt = np.asarray([poses[p][1] for p in pidx])
+    ate, _, _ = ate_rmse(est[ok], gt[ok], with_scale=False)
+    tracked = int(ok.sum())
+    meas = {"fps": len(ids) / wall, "merge": merge, "tracked": tracked, "ate_se3_m": float(ate),
+            "n_kf": a.n_kf, "merge_draw_stats": watch._sets.stats}
+    log(f"[stereo atlas] merge {merge}; tracked {tracked} (JAX {ref['tracked']}), SE(3) ATE "
+        f"{ate:.5f} (JAX {ref['ate_se3_m']:.5f}), keyframes {a.n_kf} (JAX {ref['n_kf']}); "
+        f"{meas['fps']:.2f} frames/s; launches {launches}; {smi}")
+    n = len(ids)
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": n,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"stereo atlas lap: launch counts {launches}, expected {want}")
+    if atlas.merges != 1 or merge["s"] != 1.0:
+        raise AssertionError(f"stereo atlas lap: merges {atlas.merges}, scale {merge['s']!r}")
+    if tracked < ref["tracked"] - TRACKED_MARGIN:
+        raise AssertionError(f"stereo atlas lap: tracked {tracked} < {ref['tracked']} - 2")
+    if ate > RMSE_FACTOR * ref["ate_se3_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"stereo atlas lap: ATE {ate:.5f} > 2 x {ref['ate_se3_m']:.5f} + 2 mm")
+    return launches, meas
+
+
+def run_inertial_atlas_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
+    """13c.  ``InertialAtlasSLAM(MonoInertialSLAM)`` on
+    tests/test_inertial_atlas.py's trajectory and settings at 752x480 and
+    1200 features with the JAX run's 200 Hz IMU samples, frame by frame,
+    held to ``tests/fixtures/inertial_atlas_lap.json``."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.inertial_atlas import InertialAtlasSLAM, yaw_only
+    from orb_slam3_noted_tpu_torch.pipeline.inertial_system import MonoInertialSLAM
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    poses, imgs = atlas_schedule_frames(ref, "mono_seed3")
+    ids = ref["frame_ids"]
+    imu = [tuple(b64_array(f[k], "<f8", (-1, 3) if k != "ts" else (-1,))
+                 for k in ("acc", "gyr", "ts")) for f in ref["imu"]]
+    cfg = SlamConfig(camera=Camera(PINHOLE, CAM_PARAMS), **ref["config"])
+    Drawn = drawn_class(MonoInertialSLAM, ref)
+    atlas = InertialAtlasSLAM(cfg, base_cls=Drawn, device=dev)
+    cur = {"frame": None}
+    watch = MergeWatch(atlas, ref, lambda: cur["frame"])
+    blank = np.zeros((H, W), np.uint8)
+    stages, chain, merge_k = [], None, None
+    ck.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k, fid in enumerate(ids):
+        cur["frame"] = fid
+        merged = atlas.merges
+        acc, gyr, ts = imu[k]
+        atlas.process(imgs[k] if imgs[k] is not None else blank, fid, t=ref["times"][k], acc=acc,
+                      gyr=gyr, imu_t=ts)
+        stages.append(int(atlas.active.imu_stage))
+        if atlas.merges > merged:
+            a = atlas.active
+            merge_k = k
+            chain = {"seg_ok_false": a.seg_ok.count(False), "n_seg_preints": len(a.seg_preints),
+                     "n_kf_order": len(a.kf_order), "imu_stage": a.imu_stage,
+                     "vel_finite": bool(torch.isfinite(a.ki.vel).all())}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    a = atlas.active
+    both_metric = ref["merges"][0]["s"] == 1.0
+    # between two metric maps the JAX package projects the wrong rotation
+    # (ROADMAP Queue 3): the port is held to JAX's world transform before
+    # that projection, projected onto yaw at scale 1
+    unproj = ref["merge_unprojected"][0]
+    jax_S = (yaw_only(np.asarray(unproj["R"])), np.asarray(unproj["t"]), 1.0) \
+        if both_metric else None
+    # the candidate follows the vocabulary trained on map A's descriptors
+    # (loop closing is off), which the two packages' maps move: reported
+    merge = check_merge("inertial atlas lap", watch.merges, ref,
+                        lambda s: int(a.m.kf_frame_id[s]), mono=not both_metric,
+                        hold_cand=False, jax_S=jax_S, max_deg=ATLAS_YAW_DEG, max_t=None)
+    g = watch.merges[0]
+    tilt = float(np.hypot(g["R"][2, 0], g["R"][2, 1]))
+    jax_tilt = float(np.hypot(*np.asarray(ref["merges"][0]["R"])[2, :2]))
+    yaw = lambda R: float(np.degrees(np.arctan2(R[1, 0], R[0, 0])))  # noqa: E731
+    yaw_diff = abs(yaw(g["R"]) - yaw(np.asarray(unproj["R"])))
+    est = atlas.positions()
+    states = [r.state for r in atlas.trajectory]
+    ok = np.asarray([s == "OK" and p is not None for s, p in zip(states, ref["pose_index"])])
+    twc = b64_array(ref["twc_f64"], "<f8", (-1, 3))
+    ate, _, _ = ate_rmse(est[ok], twc[ok], with_scale=False)
+    after = int(sum(s == "OK" for s in states[merge_k + 1:]))
+    j_merge_k = ids.index(ref["merges"][0]["frame_id"])
+    j_after = int(sum(s == "OK" for s in ref["states"][j_merge_k + 1:]))
+    first = lambda st: next(i for i, x in enumerate(st) if x >= 1)  # noqa: E731
+    meas = {"fps": len(ids) / wall, "merge": merge, "both_metric": both_metric,
+            "stage_frame_a": first(stages), "jax_stage_frame_a": first(ref["imu_stage"]),
+            "chain_at_merge": chain, "tilt_rad": tilt, "jax_tilt_rad": jax_tilt,
+            "yaw_vs_jax_deg": yaw_diff,
+            "tracked_after_merge": after, "jax_tracked_after_merge": j_after,
+            "ate_se3_m": float(ate), "merge_draw_stats": watch._sets.stats}
+    log(f"[inertial atlas] {meas}; JAX ATE {ref['ate_se3_m']:.5f}; launches {launches}; {smi}")
+    n = len(ids)
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"inertial atlas lap: launch counts {launches}, expected {want}")
+    if max(stages[:30]) < 1 or abs(meas["stage_frame_a"] - meas["jax_stage_frame_a"]) > 1:
+        raise AssertionError(f"inertial atlas lap: map A's IMU stage 1 at frame "
+                             f"{meas['stage_frame_a']}, JAX {meas['jax_stage_frame_a']}")
+    if atlas.maps_created != 2 or atlas.merges != 1:
+        raise AssertionError(f"inertial atlas lap: maps {atlas.maps_created}, merges {atlas.merges}")
+    if both_metric and (g["s"] != 1.0 or tilt > ATLAS_TILT_RAD or yaw_diff > ATLAS_YAW_DEG):
+        raise AssertionError(f"inertial atlas lap: the 4-DoF weld: s {g['s']!r}, tilt {tilt:.3g} "
+                             f"rad, yaw {yaw_diff:.3g} deg from JAX's")
+    if chain is None or chain["seg_ok_false"] != 1 or \
+            chain["n_seg_preints"] != chain["n_kf_order"] - 1 or not chain["vel_finite"]:
+        raise AssertionError(f"inertial atlas lap: the welded chain {chain}")
+    if after < j_after - 2:
+        raise AssertionError(f"inertial atlas lap: tracked after the merge {after} < {j_after} - 2")
+    if ate > RMSE_FACTOR * ref["ate_se3_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"inertial atlas lap: ATE {ate:.5f} > 2 x {ref['ate_se3_m']:.5f} + 2 mm")
+    return launches, meas
+
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
-    if ref["frames"] != n_frames:
+    if n_frames is not None and ref["frames"] != n_frames:
         raise AssertionError(f"{path}: {ref['frames']} frames, expected {n_frames}")
     return ref
 
@@ -2731,6 +3248,8 @@ def main() -> int:
         ref_4dof = json.load(f)
     ref_fe = load_fixture(FE_STEREO_FIXTURE, FE_FRAMES)
     ref_fe_vi = load_fixture(FE_INERTIAL_FIXTURE, FE_FRAMES)
+    ref_atlas, ref_satlas, ref_iatlas = (load_fixture(p, None) for p in (
+        ATLAS_FIXTURE, STEREO_ATLAS_FIXTURE, INERTIAL_ATLAS_FIXTURE))
     cfg = lap_config()
     t0 = time.perf_counter()
     poses, frames = lap_inputs(N_FRAMES)
@@ -2838,6 +3357,17 @@ def main() -> int:
             f"{ms(t['host_ms'])})  plain {ms(t['plain_ms'])} / {ms(t['plain_per_call_ms'])}  "
             f"library {ms(t.get('library_ms'))} / {ms(t.get('library_per_call_ms'))}  bound "
             f"{t['bound_ms']:.5f} ({t['bound_by']}); {smi}")
+    # phase 13: the Atlas; 13a the kidnapped monocular lap with a switch and
+    # a merge (13d its checkpoint, restored), 13b the stereo multi-session,
+    # 13c the inertial Atlas
+    by_lap["atlas_lap"], atl = lap("atlas_lap", run_atlas_lap, ref_atlas, dev, smi)
+    log(f"[laps] atlas lap: {json.dumps(atl, default=float)}")
+    by_lap["stereo_atlas_lap"], satl = lap("stereo_atlas_lap", run_stereo_atlas_lap, ref_satlas,
+                                           dev, smi)
+    log(f"[laps] stereo multi-session: {json.dumps(satl, default=float)}")
+    by_lap["inertial_atlas_lap"], iatl = lap("inertial_atlas_lap", run_inertial_atlas_lap,
+                                             ref_iatlas, dev, smi)
+    log(f"[laps] inertial atlas lap: {json.dumps(iatl, default=float)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

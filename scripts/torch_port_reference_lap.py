@@ -91,6 +91,9 @@ FIXTURES = {
     "loop_4dof": ("loop_4dof_full.json", 0),
     "fisheye_stereo": ("fisheye_stereo_lap.json", 100),
     "fisheye_inertial": ("fisheye_inertial_lap.json", 100),
+    "atlas": ("atlas_lap.json", 0),
+    "stereo_atlas": ("stereo_atlas_lap.json", 0),
+    "inertial_atlas": ("inertial_atlas_lap.json", 0),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -219,6 +222,8 @@ def main():
         return main_loop_4dof(args.out)
     if args.mode in ("fisheye_stereo", "fisheye_inertial"):
         return main_fisheye(args.out, n, inertial=args.mode == "fisheye_inertial")
+    if args.mode in ("atlas", "stereo_atlas", "inertial_atlas"):
+        return main_atlas(args.out, args.mode)
 
     import jax
 
@@ -1218,6 +1223,394 @@ def fisheye_depth_error(xy: np.ndarray, depth: np.ndarray, depth_map: np.ndarray
     gt = depth_map[np.clip(np.round(xy[:, 1]).astype(int), 0, H - 1),
                    np.clip(np.round(xy[:, 0]).astype(int), 0, W - 1)]
     return np.abs(depth - gt) / gt
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the Atlas.  The kidnapped layout of tests/test_atlas.py at full
+# width: an orbit, AtlasSLAM.LOST_PATIENCE + 3 featureless frames (the map
+# switch), then a revisit that starts a new map and merges it back.
+ATLAS_TRAJ = 120                 # bench.py's monocular orbit, poses 0-119
+ATLAS_A = (0, 48)                # map A: poses [0, 48)
+ATLAS_BLANK = 11                 # AtlasSLAM.LOST_PATIENCE + 3
+ATLAS_REVISIT = (16, 72)         # the revisit: poses [16, 72), ids continue
+ATLAS_CKPT_FRAMES = 16           # frames run on after the merge's checkpoint
+# the stereo multi-session: two sequences of bench.py's stereo configuration
+# over the same orbit, on_sequence_end() between them
+SA_SEQ1, SA_SEQ2 = (0, 100), (40, 90)
+# tests/test_inertial_atlas.py's lap at full width
+IA_FPS, IA_IMU_HZ = 10.0, 200.0
+IA_CFG = dict(width=W, height=H, fps=IA_FPS, n_features=1200, max_keyframes=64,
+              max_map_points=8192, local_window=5, kf_max_interval=3, min_tracked_points=12,
+              imu_init_time=1.2, imu_viba1_time=1e9, imu_viba2_time=1e9, imu_init_min_kfs=5,
+              inertial_window=6, imu_noise_gyro=1e-4, imu_noise_acc=1e-3, imu_walk_gyro=1e-6,
+              imu_walk_acc=1e-5, imu_freq=IA_IMU_HZ, vocab_words=256)
+IA_MAP_A, IA_BLIND_MAX, IA_MAP_B, IA_AFTER = 30, 60, 60, 10
+# the turn: while the lens is covered the camera pitches IA_TURN_DEG (down,
+# toward the floor near it; y points down) over t in IA_TURN_OUT, where map B
+# starts and initialises its IMU on views map A never had, then pitches back
+# (t in IA_TURN_BACK) and merges with both maps metric;
+# tests/test_inertial_atlas.py's own trajectory merges at map B's first
+# keyframes, before its IMU init
+IA_TURN_DEG, IA_TURN_OUT, IA_TURN_BACK = -60.0, (3.0, 3.9), (6.5, 8.5)
+
+
+def _smoothstep(u: float) -> float:
+    u = min(max(u, 0.0), 1.0)
+    return u * u * u * (10.0 - 15.0 * u + 6.0 * u * u)
+
+
+def ia_turn(t: float) -> float:
+    """The pitch offset (rad) at time t: 0, out to IA_TURN_DEG, back to 0."""
+    out = _smoothstep((t - IA_TURN_OUT[0]) / (IA_TURN_OUT[1] - IA_TURN_OUT[0]))
+    back = _smoothstep((t - IA_TURN_BACK[0]) / (IA_TURN_BACK[1] - IA_TURN_BACK[0]))
+    return np.deg2rad(IA_TURN_DEG) * (out - back)
+
+
+def ia_pose(t: float):
+    """``cam_pose`` of tests/test_inertial_atlas.py (a laterally excited
+    trajectory that revisits early viewpoints, period ~6.6 s) with the
+    pitch offset of ``ia_turn``."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+
+    twc = np.array([0.25 * np.sin(0.95 * t) + 0.2 * np.sin(3.8 * t),
+                    0.15 * np.cos(4.6 * t) - 0.15, 0.18 * np.sin(1.9 * t)])
+    Rwc = np.asarray(so3.exp(jnp.asarray([0.06 * np.sin(1.1 * t) + ia_turn(t),
+                                          0.08 * np.sin(0.7 * t),
+                                          0.04 * np.cos(1.3 * t)])))
+    return Rwc, twc
+
+
+def ia_imu(t0: float, t1: float):
+    """``imu_between`` of tests/test_inertial_atlas.py: exact body-frame
+    samples over (t0, t1]."""
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.geometry import so3
+    from orb_slam3_noted_tpu.imu.preintegration import GRAVITY
+
+    g = np.array([0.0, 0.0, -GRAVITY])
+    eps = 1e-4
+    ts = np.arange(np.ceil(t0 * IA_IMU_HZ), np.floor(t1 * IA_IMU_HZ) + 1) / IA_IMU_HZ
+    ts = ts[(ts > t0 + 1e-12) & (ts <= t1 + 1e-12)]
+    acc, gyr = [], []
+    for t in ts:
+        Rwb, p = ia_pose(t)
+        Rwb_p, pp = ia_pose(t + eps)
+        _, pm = ia_pose(t - eps)
+        acc.append(Rwb.T @ ((pp - 2 * p + pm) / (eps * eps) - g))
+        gyr.append(np.asarray(so3.log(jnp.asarray(Rwb.T @ Rwb_p))) / eps)
+    return np.asarray(acc).reshape(-1, 3), np.asarray(gyr).reshape(-1, 3), ts
+
+
+def record_atlas(atlas_mod, records: dict, cur: dict):
+    """Patch the JAX package's Atlas (in this process only) to record every
+    merge attempt (frame, slot, candidate, the pair mask, the (128, 3) sets
+    drawn from ``PRNGKey(slot)``, the result) and every merge (frame, slot,
+    candidate, the world transform S_wold_wnew, the slot offset)."""
+    pairs, ransac, merge = atlas_mod._cross_map_pairs, atlas_mod.sim3_ransac, \
+        atlas_mod.merge_map_arrays
+
+    def rec_pairs(m_new, slot_new, m_old, slot_old):
+        cur["pair"] = (int(slot_new), int(slot_old))
+        return pairs(m_new, slot_new, m_old, slot_old)
+
+    def rec_ransac(x1, x2, valid, key, **kw):
+        res = ransac(x1, x2, valid, key, **kw)
+        v = np.asarray(valid)
+        sets = jax_draws_1d(v, key, 3, 128)
+        records["merge_attempts"].append({
+            "frame_id": cur["frame"], "slot": cur["pair"][0], "cand": cur["pair"][1],
+            "seed": int(np.asarray(key)[1]), "n": int(v.shape[0]), "valid": b64(np.packbits(v)),
+            "n_valid": int(v.sum()), "shape": list(sets.shape), "sets": b64(sets.astype("<i2")),
+            "fix_scale": bool(kw.get("fix_scale", False)), "success": bool(res.success),
+            "n_inliers": int(res.n_inliers), "s": float(res.s)})
+        return res
+
+    def rec_merge(old, new_m, n_kf_new, n_mp_new, S):
+        out = merge(old, new_m, n_kf_new, n_mp_new, S)
+        if out is not None:
+            records["merges"].append({
+                "frame_id": cur["frame"], "slot": cur["pair"][0], "cand": cur["pair"][1],
+                "cand_frame": int(np.asarray(old.m.kf_frame_id)[cur["pair"][1]]),
+                "kf_off": int(out[1]), "n_kf": int(out[2]), "n_mp": int(out[3]),
+                "R": _mat(S[0]), "t": _mat(S[1]), "s": float(S[2])})
+        return out
+
+    atlas_mod._cross_map_pairs, atlas_mod.sim3_ransac, atlas_mod.merge_map_arrays = (
+        rec_pairs, rec_ransac, rec_merge)
+
+
+def checkpoint_schema(slam) -> dict:
+    """{key: [dtype, shape]} of the JAX package's ``save_map`` of ``slam``."""
+    import tempfile
+
+    from orb_slam3_noted_tpu.io.checkpoint import save_map
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.npz")
+        save_map(path, slam)
+        z = np.load(path)
+        return {k: [str(z[k].dtype), list(z[k].shape)] for k in z.files}
+
+
+def main_atlas(out_path: str, mode: str):
+    """Phase 13's reference laps, frame by frame, recording the two-view
+    draws (``init_draws``, by frame id), every merge attempt and merge
+    (:func:`record_atlas`) and per frame the state, inliers, the Atlas's map
+    and merge counts (and the ``imu_stage`` on the inertial lap).
+
+    ``atlas``: ``AtlasSLAM(MonoSLAM)`` at ``bench.py``'s monocular
+    configuration (loop closing on): poses ``ATLAS_A`` of the 120-frame
+    orbit, ``ATLAS_BLANK`` featureless frames, the revisit ``ATLAS_REVISIT``;
+    right after the merge the active system's checkpoint schema
+    (``checkpoint_schema``), and at the end a query at frame 2's viewpoint
+    against the merged database.  ``stereo_atlas``: ``AtlasSLAM(StereoSLAM,
+    fix_scale=True)`` at ``bench.py``'s stereo configuration, two sequences
+    (``SA_SEQ1``, ``SA_SEQ2``) with ``on_sequence_end()`` between them.
+    ``inertial_atlas``: ``InertialAtlasSLAM(MonoInertialSLAM)`` on
+    tests/test_inertial_atlas.py's trajectory and settings at 752x480 and
+    1200 features with the pitch of ``ia_turn`` (map B starts looking at
+    the floor, IMU-initialises, pitches back up and merges with both maps
+    metric), with its 200 Hz IMU samples (stored); ``merge_unprojected``
+    keeps each merge's world transform before the JAX package's 4-DoF
+    projection."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.ops import orb as jorb
+    from orb_slam3_noted_tpu.pipeline import atlas as jatlas
+    from orb_slam3_noted_tpu.pipeline import system as jsys
+    from orb_slam3_noted_tpu.pipeline.inertial_atlas import InertialAtlasSLAM
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom, orbit_trajectory, stereo_pair
+
+    cam = Camera(PINHOLE, CAM_PARAMS)
+    records = {"merge_attempts": [], "merges": [], "merge_unprojected": []}
+    cur = {"frame": None}
+    record_atlas(jatlas, records, cur)
+    init_draws = []
+    rtv = jsys.reconstruct_two_views
+
+    def recording_rtv(rays1, rays2, matched, key, **kw):
+        m = np.asarray(matched)
+        sets = jax_draws_1d(m, key, 8, 256)
+        init_draws.append({"seed": int(np.asarray(key)[1]), "shape": list(sets.shape),
+                           "sets": b64(sets.astype("<i2")), "n": int(m.shape[0]),
+                           "matched": b64(np.packbits(m))})
+        return rtv(rays1, rays2, matched, key, **kw)
+
+    jsys.reconstruct_two_views = recording_rtv
+    per = {"frame_ids": [], "pose_index": [], "states": [], "n_inliers": [], "maps": [],
+           "merges": [], "n_kf": [], "imu_stage": []}
+    extra = {}
+
+    def watch_merges(atlas):
+        """Record each merge's world transform from the RANSAC result as
+        it arrives (before the inertial Atlas replaces its rotation)."""
+        from orb_slam3_noted_tpu.geometry import sim3 as jsim3
+
+        do = atlas._do_merge
+
+        def rec_do(st, si, slot, cand, res):
+            m, one = atlas.active.m, jnp.asarray(1.0, jnp.float32)
+            S = jsim3.compose(jsim3.inverse((st.m.kf_Rcw[cand], st.m.kf_tcw[cand], one)),
+                              jsim3.compose(jsim3.inverse((res.R, res.t, res.s)),
+                                            (m.kf_Rcw[slot], m.kf_tcw[slot], one)))
+            records["merge_unprojected"].append({"frame_id": cur["frame"], "R": _mat(S[0]),
+                                                 "t": _mat(S[1]), "s": float(S[2])})
+            return do(st, si, slot, cand, res)
+
+        atlas._do_merge = rec_do
+
+    def step(atlas, fid, k, *args, **kw):
+        cur["frame"] = int(fid)
+        rec = atlas.process(*args, **kw)
+        per["frame_ids"].append(int(fid))
+        per["pose_index"].append(k)
+        per["states"].append(rec.state if rec is not None else "NONE")
+        per["n_inliers"].append(int(rec.n_inliers) if rec is not None else 0)
+        per["maps"].append(int(atlas.maps_created))
+        per["merges"].append(int(atlas.merges))
+        per["n_kf"].append(int(atlas.active.n_kf))
+        per["imu_stage"].append(int(getattr(atlas.active, "imu_stage", 0)))
+        print(f"frame {fid:4d} pose {k} {per['states'][-1]:<16} inliers {per['n_inliers'][-1]:4d} "
+              f"keyframes {atlas.active.n_kf} maps {atlas.maps_created} merges {atlas.merges} "
+              f"stage {per['imu_stage'][-1]}", file=sys.stderr)
+        return rec
+
+    t0 = time.perf_counter()
+    if mode == "atlas":
+        cfg = SlamConfig(camera=cam, width=W, height=H, n_features=1200, max_keyframes=64,
+                         max_map_points=8192, local_window=5, kf_max_interval=10,
+                         enable_loop_closing=True)
+        room = BoxRoom(seed=0)
+        poses = orbit_trajectory(ATLAS_TRAJ, forward=0.03, yaw0=0.45)
+        sched = ([(i, i) for i in range(*ATLAS_A)]
+                 + [(ATLAS_A[1] + j, None) for j in range(ATLAS_BLANK)])
+        fid0 = sched[-1][0] + 1
+        sched += [(fid0 + j, k) for j, k in enumerate(range(*ATLAS_REVISIT))]
+        blank = np.zeros((H, W), np.uint8)
+        atlas = jatlas.AtlasSLAM(cfg, jsys.MonoSLAM)
+        watch_merges(atlas)
+        n_kf_a = None
+        ckpt_at = None
+        for fid, k in sched:
+            img = blank if k is None else room.render(*poses[k], cam.params, W, H).astype(np.uint8)
+            merged_before = atlas.merges
+            step(atlas, fid, k, img, fid)
+            if atlas.stored and n_kf_a is None:
+                n_kf_a = int(atlas.stored[0].n_kf)
+                extra["n_db_a"] = int(atlas.stored[0].db.present.sum())
+            if atlas.merges > merged_before:
+                ckpt_at = int(fid)
+                extra["checkpoint_schema"] = checkpoint_schema(atlas.active)
+        extra["n_kf_a"] = n_kf_a
+        extra["checkpoint_after_frame"] = ckpt_at
+        atlas.flush()
+        lc = atlas.active.loop_closer
+        q = jorb.extract_orb(jnp.asarray(room.render(*poses[2], cam.params, W, H).astype(
+            np.float32)), n_features=1200)
+        _, bow = lc.db.compute_bow(q.desc, q.valid)
+        slots, _ = lc.db.detect_candidates(bow, np.zeros(cfg.max_keyframes, bool), n_best=3,
+                                           min_rel_score=0.5)
+        extra["query_pose"] = 2
+        extra["query_slots"] = [int(s) for s in slots]
+        extra["db_rows"] = [int(s) for s in np.flatnonzero(lc.db.present)]
+        extra["loops_closed"] = int(lc.loops_closed)
+        rwc = np.stack([np.asarray(R, np.float32) for R, _ in poses])
+        extra["rwc_f32"] = b64(rwc.astype("<f4"))
+        twc = np.asarray([poses[k][1] if k is not None else np.full(3, np.nan) for _, k in sched])
+        source = (f"JAX AtlasSLAM(MonoSLAM).process frame by frame, bench.py's monocular "
+                  f"configuration, loop closing on, CPU; BoxRoom(seed=0), poses {ATLAS_A} of "
+                  f"orbit_trajectory({ATLAS_TRAJ}, forward=0.03, yaw0=0.45), {ATLAS_BLANK} blank "
+                  f"frames, then poses {ATLAS_REVISIT}")
+        cfg_rec = {"local_window": 5, "kf_max_interval": 10, "max_map_points": 8192}
+    elif mode == "stereo_atlas":
+        cfg = SlamConfig(camera=cam, width=W, height=H, n_features=1200, n_levels=8,
+                         scale_factor=1.2, bf=BASELINE * cam.fx, th_depth=45.0,
+                         max_keyframes=64, max_map_points=16384, local_window=5,
+                         kf_max_interval=10, enable_loop_closing=False)
+        room = BoxRoom(seed=0)
+        poses = orbit_trajectory(ATLAS_TRAJ, forward=0.03, yaw0=0.45)
+        atlas = jatlas.AtlasSLAM(cfg, jsys.StereoSLAM, fix_scale=True)
+        watch_merges(atlas)
+        sched = []
+        fid = 0
+        for si, seq in enumerate((SA_SEQ1, SA_SEQ2)):
+            for k in range(*seq):
+                left, right, _ = stereo_pair(room, *poses[k], cam.params, W, H, BASELINE)
+                sched.append((fid, k))
+                step(atlas, fid, k, left.astype(np.uint8), right.astype(np.uint8), fid)
+                fid += 1
+            if si == 0:
+                extra["seq1_n_kf"] = int(atlas.active.n_kf)
+                atlas.on_sequence_end()
+                extra["stored_after_seq1"] = len(atlas.stored)
+        atlas.flush()
+        rwc = np.stack([np.asarray(R, np.float32) for R, _ in poses])
+        extra["rwc_f32"] = b64(rwc.astype("<f4"))
+        twc = np.asarray([poses[k][1] for _, k in sched])
+        source = (f"JAX AtlasSLAM(StereoSLAM, fix_scale=True).process frame by frame, bench.py's "
+                  f"stereo configuration, loop closing off, CPU; BoxRoom(seed=0), "
+                  f"orbit_trajectory({ATLAS_TRAJ}, forward=0.03, yaw0=0.45), sequence 1 poses "
+                  f"{SA_SEQ1}, on_sequence_end(), sequence 2 poses {SA_SEQ2}")
+        cfg_rec = {"local_window": 5, "kf_max_interval": 10, "max_map_points": 16384,
+                   "th_depth": 45.0, "bf": BASELINE * cam.fx}
+    else:
+        cfg = SlamConfig(camera=cam, **IA_CFG)
+        room = BoxRoom(seed=3)
+        atlas = InertialAtlasSLAM(cfg)
+        watch_merges(atlas)
+        sched, rwcs, twcs, imu = [], [], [], []
+        fid, t_prev = 0, 0.0
+
+        def feed(blind):
+            nonlocal fid, t_prev
+            t = (fid + 1) / IA_FPS
+            Rwc, twc_ = ia_pose(t)
+            img = (np.zeros((H, W), np.uint8) if blind
+                   else room.render(Rwc, twc_, cam.params, W, H).astype(np.uint8))
+            acc, gyr, ts = ia_imu(t_prev, t)
+            rwcs.append(np.asarray(Rwc, np.float32))
+            twcs.append(twc_)
+            imu.append((acc, gyr, ts))
+            sched.append((fid, None if blind else fid))
+            step(atlas, fid, None if blind else fid, img, fid, t=t, acc=acc, gyr=gyr, imu_t=ts)
+            t_prev = t
+            fid += 1
+
+        for _ in range(IA_MAP_A):
+            feed(False)
+        extra["stage_a"] = int(atlas.active.imu_stage)
+        while atlas.maps_created == 1 and fid < IA_BLIND_MAX:
+            feed(True)
+        extra["stored_stage"] = (int(atlas.stored[0].inertial["imu_stage"])
+                                 if atlas.stored and atlas.stored[0].inertial else None)
+        for _ in range(IA_MAP_B):
+            feed(False)
+            if atlas.merges:
+                break
+        a = atlas.active
+        extra["merge_chain"] = {
+            "seg_ok_false": int(a.seg_ok.count(False)), "n_seg_preints": len(a.seg_preints),
+            "n_kf_order": len(a.kf_order), "kf_order": [int(s) for s in a.kf_order],
+            "seg_ok": [bool(x) for x in a.seg_ok], "cur_vel": _mat(a.cur_vel),
+            "imu_stage": int(a.imu_stage)}
+        extra["merge_frame_index"] = len(sched) - 1
+        for _ in range(IA_AFTER):
+            feed(False)
+        extra["rwc_f32"] = b64(np.stack(rwcs).astype("<f4"))
+        extra["twc_f64"] = b64(np.asarray(twcs, "<f8"))
+        b64f = lambda x: b64(np.asarray(x, "<f8"))  # noqa: E731
+        extra["imu"] = [{"acc": b64f(a_), "gyr": b64f(g), "ts": b64f(ts), "n": int(len(ts))}
+                        for a_, g, ts in imu]
+        extra["times"] = [(f + 1) / IA_FPS for f, _ in sched]
+        twc = np.asarray(twcs)
+        source = ("JAX InertialAtlasSLAM(MonoInertialSLAM).process frame by frame, "
+                  "tests/test_inertial_atlas.py's trajectory and settings at 752x480 and 1200 "
+                  f"features, 200 Hz IMU, CPU; BoxRoom(seed=3), {IA_MAP_A} frames, blind until "
+                  f"the map switch (pitching {IA_TURN_DEG} deg over t in {IA_TURN_OUT} s), map "
+                  f"B on the floor, pitching back over t in {IA_TURN_BACK} s, until the merge "
+                  "and 10 frames more")
+        cfg_rec = {k: v for k, v in IA_CFG.items()}
+    wall = time.perf_counter() - t0
+
+    est = atlas.positions()
+    states = per["states"]
+    ok = np.asarray([s == "OK" for s in states])
+    shown = np.asarray([k is not None for _, k in sched])
+    use = ok & shown
+    ate_sim3, _, (_, _, scale) = ate_rmse(est[use], twc[use], with_scale=True)
+    ate_se3, _, _ = ate_rmse(est[use], twc[use], with_scale=False)
+    a = atlas.active
+    out = {
+        "source": source, "mode": mode, "frames": len(sched), "width": W, "height": H,
+        "camera": list(CAM_PARAMS), "n_features": 1200, "config": cfg_rec,
+        **per, "positions": est.astype(float).tolist(),
+        "tracked": int(ok.sum()), "ate_frames": [int(i) for i in np.flatnonzero(use)],
+        "ate_sim3_m": float(ate_sim3), "ate_scale": float(scale), "ate_se3_m": float(ate_se3),
+        "maps_created": int(atlas.maps_created), "n_maps": int(atlas.n_maps),
+        "merges_total": int(atlas.merges), "n_kf": int(a.n_kf), "n_mp": int(a.n_mp),
+        "kf_frame_ids": sorted(int(f) for f in np.asarray(a.m.kf_frame_id)[
+            np.asarray(a.m.kf_valid)]),
+        "init_draws": init_draws, **records, **extra,
+    }
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("states", "n_inliers", "positions", "ate_frames", "init_draws",
+                                   "rwc_f32", "twc_f64", "imu", "frame_ids", "pose_index", "maps",
+                                   "merges", "n_kf", "imu_stage", "merge_attempts", "times",
+                                   "checkpoint_schema", "kf_frame_ids")}))
+    print(f"wall {wall:.1f} s", file=sys.stderr)
 
 
 if __name__ == "__main__":

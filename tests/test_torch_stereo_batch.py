@@ -146,8 +146,9 @@ def test_batched_front_end_equals_pair_by_pair(frames):
 # scale factor and its predicted octave ceil(log(d_max / d) / log 1.2) lands
 # on an integer: the last bit of ``log`` (XLA's and torch's differ) decides
 # it.  That frame is held to what this costs (measured: 3 of 388 matches,
-# R 5.6e-4, t 3.2e-3, inliers 379 against 376); every other frame exactly.
-AT_KF_R, AT_KF_T, AT_KF_SHARE = 1e-3, 5e-3, 0.99
+# R 5.6e-4, t 3.2e-3, inliers 379 against 376 on one x86 CPU, 380 against
+# 376 on an AMD EPYC with AVX-512); every other frame exactly.
+AT_KF_R, AT_KF_T, AT_KF_SHARE, AT_KF_INLIERS = 1e-3, 5e-3, 0.99, 4
 
 
 @pytest.mark.parametrize("call", [0, 1, 2])
@@ -170,7 +171,7 @@ def test_stereo_track_batch_feats_matches_jax(laps, call):
     np.testing.assert_allclose(tt.numpy()[k:], tss[k:], atol=1e-3)
     np.testing.assert_array_equal(mpt.numpy()[k:], mp_feats[k:])
     if at_kf:
-        assert abs(int(nt[0]) - int(n_inl[0])) <= (1 - AT_KF_SHARE) * n_inl[0]
+        assert abs(int(nt[0]) - int(n_inl[0])) <= AT_KF_INLIERS
         np.testing.assert_allclose(Rt.numpy()[0], Rs[0], atol=AT_KF_R)
         np.testing.assert_allclose(tt.numpy()[0], tss[0], atol=AT_KF_T)
         assert (mpt.numpy()[0] == mp_feats[0]).mean() >= AT_KF_SHARE

@@ -41,6 +41,12 @@ CFG_KW = dict(
 # orders, so a borderline match or inlier can flip; measured <= 0.7 mm
 POS_TOL_M = 2e-3
 INLIER_TOL = 5
+# the first tracked frame is predicted at keyframe 0's own pose, where the
+# octave prediction ceil(log(d_max / d) / log 1.2) lands on integers and the
+# last bit of ``log`` decides it (ROADMAP Queue 3): 4 of 600 bindings differ
+# on an AMD EPYC with AVX-512 (R 1.51e-4, t 1.18e-3 apart; within 1e-4 and
+# 1e-3 on another x86 CPU); every later frame agrees to 1e-7
+FIRST_R_ATOL, FIRST_T_ATOL = 2e-4, 1.5e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -182,7 +188,7 @@ def test_track_frame_on_carried_map(laps):
     prediction for every tracked frame of the lap."""
     js, _, calls, _ = laps
     assert len(calls) == N_FRAMES - 1
-    for args, kw, out in calls:
+    for k, (args, kw, out) in enumerate(calls):
         m, feats, Rp, tp, mask = args[:5]
         cfg = SlamConfig(camera=Camera(PINHOLE, PARAMS), **CFG_KW)
         res = ttr.track_frame(
@@ -194,8 +200,8 @@ def test_track_frame_on_carried_map(laps):
         )
         Rj, tj, nj, mpj, visj, keepj = (np.asarray(x) for x in out)
         Rt, tt, nt, mpt, vist, keept = (x.numpy() for x in res)
-        np.testing.assert_allclose(Rt, Rj, rtol=0, atol=1e-4)
-        np.testing.assert_allclose(tt, tj, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(Rt, Rj, rtol=0, atol=FIRST_R_ATOL if k == 0 else 1e-4)
+        np.testing.assert_allclose(tt, tj, rtol=0, atol=FIRST_T_ATOL if k == 0 else 1e-3)
         assert abs(int(nt) - int(nj)) <= INLIER_TOL
         np.testing.assert_array_equal(vist, visj)
         assert (mpt == mpj).mean() >= 0.99

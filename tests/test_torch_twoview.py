@@ -47,6 +47,12 @@ R_ATOL, T_ATOL, PTS_RTOL, INLIER_SHARE = 1e-4, 1e-4, 1e-3, 0.99
 # PTS_RTOL_MAX (measured: 9.3e-3 for lap frame 3, 3.6e-3 for frame 4,
 # 9.4e-5 for frame 12; medians 3.9e-4, 1.0e-4, 1.7e-5)
 PTS_RTOL_MAX = 2e-2
+# a lap frame's t21 after the Sampson polish of a hypothesis whose float32
+# Gram eigenproblem rounds differently in MKL and XLA: 1.88e-4 apart on an
+# AMD EPYC with AVX-512 (within 1e-4 on another x86 CPU)
+T_ATOL_LAP = 2e-4
+# inlier counts of a candidate with fewer matches than a minimal set
+FEW_MATCHES_SPREAD = 1
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -163,7 +169,13 @@ def test_few_matches_run_and_fail(n_valid):
         assert torch.isfinite(rest.R21).all() and torch.isfinite(rest.t21).all()
     rest = ttv.reconstruct_two_views(torch.from_numpy(r1), torch.from_numpy(r2),
                                      torch.from_numpy(valid), jax_minimal_sets(valid, key))
-    assert int(rest.n_inliers) == int(resj.n_inliers)
+    # under 8 matches every minimal set repeats the same 8 rays, and the
+    # winning hypothesis is a near-tie of scores from the float32 Gram
+    # eigenproblems (ROADMAP Queue 3, "minimal solvers"): at 5 matches the
+    # count is 3 (JAX) against 4 (port) on an AMD EPYC with AVX-512, equal
+    # on another x86 CPU, and 4 against 5 with both packages in float64
+    spread = FEW_MATCHES_SPREAD if n_valid < 8 else 0
+    assert abs(int(rest.n_inliers) - int(resj.n_inliers)) <= spread
 
 
 def test_degenerate_input_neither_raises_nor_succeeds():
@@ -189,9 +201,13 @@ def test_degenerate_input_neither_raises_nor_succeeds():
 
 
 def test_batch_of_pairs_equals_pair_by_pair():
+    """In float64: batched and single products round differently in the
+    last bit (MKL takes other code paths for them), and near-parallel rays
+    amplify that in float32 to 0.11 of a point's distance (AMD EPYC with
+    AVX-512); batching is what is held here, not float32 rounding."""
     pairs = [make_pair(s) for s in range(3)]
-    r1 = torch.stack([torch.from_numpy(p[0]) for p in pairs])
-    r2 = torch.stack([torch.from_numpy(p[1]) for p in pairs])
+    r1 = torch.stack([torch.from_numpy(p[0]) for p in pairs]).double()
+    r2 = torch.stack([torch.from_numpy(p[1]) for p in pairs]).double()
     valid = torch.ones(r1.shape[:2], dtype=torch.bool)
     valid[1, 100:] = False
     sets = ttv.sample_minimal_sets(valid, 256, torch.Generator().manual_seed(3))
@@ -201,9 +217,7 @@ def test_batch_of_pairs_equals_pair_by_pair():
         for f in one._fields:
             a, c = getattr(batch, f)[b], getattr(one, f)
             if a.is_floating_point():
-                # batched and single products round differently in the last
-                # bit, which near-parallel rays amplify in the points
-                # (measured: 4.7e-5 relative)
+                # measured in float64: 1.2e-8 relative at most
                 torch.testing.assert_close(a, c, atol=1e-5, rtol=1e-4)
             else:
                 assert torch.equal(a, c), f
@@ -259,7 +273,7 @@ def test_init_attempt_batch_matches_jax(two_frames):
     assert outj[1].any()  # at least one candidate initialises
     for b in range(3):
         np.testing.assert_allclose(R21[b], outj[4][b], atol=R_ATOL)
-        np.testing.assert_allclose(t21[b], outj[5][b], atol=T_ATOL)
+        np.testing.assert_allclose(t21[b], outj[5][b], atol=T_ATOL_LAP)
         assert (good[b] == outj[2][b]).mean() >= INLIER_SHARE
         common = good[b] & outj[2][b]
         rel = (np.linalg.norm(pts1[b][common] - outj[3][b][common], axis=1)
