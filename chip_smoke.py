@@ -170,8 +170,32 @@ Phases, each of which raises on failure (exit code 1, no result line):
    (the JAX package tilts it: ROADMAP Queue 3), the welded chain (one
    invalid junction segment), tracked frames after the merge, SE(3) ATE,
    K1-K3 once a frame;
+14. the offline driver: three dataset layouts written by
+   ``scripts/cli_layouts.py`` with the port's ``io.images.write_png`` under
+   ``build/cli_layouts/``, each run through ``cli.main`` in this process on
+   the card, with ``--eval --metrics``, and held to the JAX package's CLI
+   on the same files (``tests/fixtures/cli_*.json``): the parsed settings
+   equal, tracked >= JAX - 2, keyframes +-2, the CLI's ATE <= 2 x JAX + 2
+   mm, ``imu_stage`` equal, a trajectory row per record, a metric line per
+   dispatch and a final one, K1-K3 (K4 in 14a) once per extraction
+   dispatch.  (a) EuRoC layout (``EuRoC.yaml``'s schema), ``--mode
+   stereo-inertial --batch 16 --times``: 80 pairs of ``bench.py``'s
+   stereo-inertial lap at 752x480, 1200 features (phase 11's renders), with
+   its 200 Hz IMU rows,
+   the images warped to raw cameras with rad-tan distortion and a
+   rectifying rotation, rectified on the card by the CLI (the remap's
+   device and per-call ms reported).  (b) TUM RGB-D layout (``TUM1.yaml``),
+   ``--mode rgbd --checkpoint-out``: 32 RGB PNGs at 640x480 (1000
+   features) with 16-bit depth at scale 5000, the depth stamps ~10 ms off
+   and one missing (31 frames associate); the npz's keys and dtypes as the
+   JAX CLI's.  (c) TUM-VI layout (``TUM_512.yaml``), ``--mode
+   stereo-inertial``, routed to ``fisheye-stereo-inertial`` by Camera2: 64
+   pairs of phase 12b's motion and IMU at 512x512, 1500 features (phase
+   12's renders).  Each
+   reports frames/s (the CLI's), decode ms a frame (the loader's reader and
+   prefetcher over the layout);
 
-after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b and 13a-c, every kernel against its plain
+after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c and 14a-c, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -2149,12 +2173,12 @@ class StageClock:
         return {k: {"n": self.n[k], "host_ms": round(self.ms[k], 3)} for k in self.ms}
 
 
-def run_si_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
+def run_si_lap(ref: dict, inputs, dev, smi) -> tuple[dict, dict]:
     """``bench.py``'s stereo-inertial lap (``bench.py:146-212``):
     ``StereoInertialSLAM.process_batch`` in batches of 16 from frame 0 with
     each batch's IMU chunk, loop closing on, ``flush()`` at the end, frames
-    staged on the card once; held to the JAX run (``SI_*``).  Returns
-    (launch counts, measurements)."""
+    staged on the card once; ``inputs`` from :func:`si_inputs`.  Held to
+    the JAX run (``SI_*``).  Returns (launch counts, measurements)."""
     import torch
 
     from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
@@ -2163,10 +2187,8 @@ def run_si_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
     from orb_slam3_noted_tpu_torch.pipeline import tracking as T
     from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
 
-    t0 = time.perf_counter()
-    twc, times, pairs, chunks = si_inputs(ref)
+    twc, times, pairs, chunks = inputs
     n = len(pairs)
-    log(f"[si] rendered {n} stereo pairs in {time.perf_counter() - t0:.1f} s")
     staged = torch.from_numpy(np.stack([p[0] for p in pairs] + [p[1] for p in pairs])).to(dev)
     frames = [(staged[i], staged[n + i]) for i in range(n)]
     slam = IS.StereoInertialSLAM(si_config(ref), device=dev)
@@ -2371,6 +2393,9 @@ def _render_fisheye_job(job):
 
     room, cam1, cam2, Rlr, tlr, Rwc, twc, depth = job
     if not _FE_ROOM:
+        import torch
+
+        torch.set_num_threads(1)  # one of a pool of processes, one a core
         _FE_ROOM.append(BoxRoom(**room))
     Rwc = np.asarray(Rwc, np.float64)
     left = _FE_ROOM[0].render_fisheye(Rwc, twc, Camera(KANNALA_BRANDT8, cam1), FE_W, FE_H,
@@ -3205,6 +3230,205 @@ def run_inertial_atlas_lap(ref: dict, dev, smi) -> tuple[dict, dict]:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the CLI on dataset layouts
+
+CLI_LAYOUTS = ("cli_euroc", "cli_tum_rgbd", "cli_tumvi")
+CLI_ATE_SLACK_M = 0.002      # ATE <= 2 x JAX + 2 mm, in the CLI's own --eval alignment
+CLI_TRACKED_SLACK = 2        # tracked frames >= JAX - 2
+CLI_KF_SLACK = 2             # keyframes within +-2 of JAX's
+
+
+def _cli_layouts():
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import cli_layouts
+
+    return cli_layouts
+
+
+def _render_cli_job(job):
+    """One frame of a phase-14 layout, rendered by the port: ("stereo", R,
+    t, camera, W, H, baseline) -> (left, right) uint8 in ``BoxRoom(seed=0)``;
+    ("rgbd", R, t, camera, W, H) -> (image uint8, depth float32)."""
+    from orb_slam3_noted_tpu_torch.utils.synthetic import BoxRoom, stereo_pair
+
+    if not _ROOM:
+        _ROOM.extend([BoxRoom(seed=0), BoxRoom(seed=3)])
+    kind, R, t, cam, w, h = job[:6]
+    if kind == "stereo":
+        left, right, _ = stereo_pair(_ROOM[0], R, t, cam, w, h, job[6])
+        return left.astype(np.uint8), right.astype(np.uint8)
+    img, depth = _ROOM[0].render(R, t, cam, w, h, return_depth=True)
+    return img.astype(np.uint8), depth.astype(np.float32)
+
+
+def _warp_job(job):
+    """One image of a phase-14 EuRoC layout warped to its raw camera."""
+    return _cli_layouts().raw_from_rectified(*job)
+
+
+def pool_warp(jobs) -> list:
+    """``scripts/cli_layouts.py``'s warps over a pool of worker processes."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        return pool.map(_warp_job, jobs, chunksize=4)
+
+
+def cli_frames(case: dict) -> list:
+    """The frames of a phase-14 layout, rendered by the port from the JAX
+    runs' stored poses (a pool of worker processes)."""
+    import multiprocessing
+
+    rwc, twc = case["poses"]
+    if case["kind"] == "fisheye":
+        jobs = [(case["room"], case["camera1"], case["camera2"], case["rlr"], case["tlr"], R, t,
+                 False) for R, t in zip(rwc, twc)]
+        fn = _render_fisheye_job
+    else:
+        extra = (case["baseline"],) if case["kind"] == "stereo" else ()
+        jobs = [(case["kind"], R, t, case["camera"], case["width"], case["height"], *extra)
+                for R, t in zip(rwc, twc)]
+        fn = _render_cli_job
+    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
+        return pool.map(fn, jobs, chunksize=4)
+
+
+def run_cli_layout(name: str, ref: dict, si_ref: dict, fe_ref: dict, dev, smi, rendered=None):
+    """Phase 14: one dataset layout written by ``scripts/cli_layouts.py``
+    with the port's ``write_png`` under ``build/cli_layouts/``, then
+    ``cli.main`` in this process on the card.  Held to the JAX CLI's run on
+    the same files (``tests/fixtures/<name>.json``).  ``rendered``: frames
+    an earlier phase rendered from the same poses (their first ``n`` are
+    the layout's), else rendered here.  Returns (launch counts,
+    measurements)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from orb_slam3_noted_tpu_torch import cli
+    from orb_slam3_noted_tpu_torch.io import datasets as D
+    from orb_slam3_noted_tpu_torch.io import images
+    from orb_slam3_noted_tpu_torch.io.yaml_compat import (
+        load_settings,
+        load_stereo_rectification,
+    )
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline import tracking as T
+
+    L = _cli_layouts()
+    case = L.cases(si_ref, fe_ref)[name]
+    n = case["n"]
+    t0 = time.perf_counter()
+    frames = cli_frames(case) if rendered is None else [tuple(f[:2]) for f in rendered[:n]]
+    t_render = time.perf_counter() - t0
+    root = os.path.join(ROOT, "build", "cli_layouts", name)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    argv = L.write_case(name, case, frames, root, si_ref, fe_ref, images.write_png,
+                        warp=pool_warp)
+    t_write = time.perf_counter() - t0
+    settings = argv[argv.index("--settings") + 1]
+    seq_dir = argv[argv.index("--seq") + 1]
+    got_settings = L.settings_record(*load_settings(settings))
+    if got_settings != {"config": ref["config"], "imu": ref["imu"]}:
+        diff = {k: (got_settings["config"][k], ref["config"][k]) for k in ref["config"]
+                if got_settings["config"][k] != ref["config"][k]}
+        raise AssertionError(f"{name}: parsed settings differ from the JAX package's: {diff} "
+                             f"imu {got_settings['imu']} vs {ref['imu']}")
+
+    # decode: every frame of the layout through the loader's reader and
+    # prefetcher, before the run
+    seq = (D.load_tum_rgbd(seq_dir) if name == "cli_tum_rgbd"
+           else D.load_euroc(seq_dir, stereo=True, with_imu=True))
+    t0 = time.perf_counter()
+    for i in range(len(seq)):
+        seq.read(i)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(seq)
+    seq.close()
+    meas = {"frames_rendered": n, "render_s": t_render, "write_s": t_write,
+            "decode_ms_per_frame": decode_ms, "frames_read": len(seq)}
+    rect = load_stereo_rectification(settings)
+    if name == "cli_euroc":
+        maps = [tuple(torch.from_numpy(m).to(dev) for m in side)
+                for side in D.make_rectify_maps(rect)]
+        raw = torch.from_numpy(images.read_gray(seq.left_paths[0])).to(dev, torch.float32)
+        meas["rectify_ms"] = device_time_ms(lambda: D.rectify(raw, maps[0]))
+        meas["rectify_per_call_ms"] = cuda_time_ms(lambda: D.rectify(raw, maps[0]))
+    elif rect is not None:
+        raise AssertionError(f"{name}: the settings carry rectification blocks")
+
+    counted = {}
+    build = cli.build_system
+
+    def counting_build(*args, **kw):
+        slam = build(*args, **kw)
+        counted["slam"] = slam
+        counted["count"] = DispatchCounter(slam, ("process",))
+        return slam
+
+    clock = StageClock()
+    clock.wrap(T, "stereo_frontend_batch", "frontend_batch")
+    cli.build_system = counting_build
+    out = io.StringIO()
+    try:
+        ck.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            result = cli.main(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        launches = ck.launch_counts()
+    finally:
+        cli.build_system = build
+        clock.restore()
+    log(f"[{name}] CLI output: {out.getvalue().strip()}")
+    slam = counted["slam"]
+    got = L.cli_outputs(root, result)
+    batch = int(argv[argv.index("--batch") + 1]) if "--batch" in argv else 1
+    dispatches = counted["count"].n["process"] + clock.n["frontend_batch"]
+    meas.update({"result": result, "fps": result["fps"], "imu_stage": got["imu_stage"],
+                 "traj_rows": got["traj_rows"], "metric_lines": len(got["metric_events"]),
+                 "dispatches": dispatches, "card": smi})
+    log(f"[{name}] {n} frames: tracked {result['tracked']} (JAX {ref['result']['tracked']}), "
+        f"keyframes {result['keyframes']} (JAX {ref['result']['keyframes']}), ATE "
+        f"{result.get('ate_rmse_m')} m (JAX {ref['result'].get('ate_rmse_m')}), imu_stage "
+        f"{got['imu_stage']} (JAX {ref['imu_stage']}), {result['fps']} frames/s (JAX on the CPU "
+        f"{ref['result']['fps']}), decode {decode_ms:.2f} ms a frame, rectify "
+        f"{meas.get('rectify_ms', float('nan')):.4f} ms device / "
+        f"{meas.get('rectify_per_call_ms', float('nan')):.4f} ms per call an image; "
+        f"render {t_render:.1f} s, write {t_write:.1f} s; launches {launches}, extraction dispatches {dispatches}; {smi}")
+
+    want = {"fast_candidates": dispatches, "gaussian_blur7": dispatches, "brief_sample": dispatches,
+            "sad_stereo": dispatches if name == "cli_euroc" else 0, "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+    if result["frames"] != ref["result"]["frames"]:
+        raise AssertionError(f"{name}: {result['frames']} frames, JAX {ref['result']['frames']}")
+    if result["tracked"] < ref["result"]["tracked"] - CLI_TRACKED_SLACK:
+        raise AssertionError(f"{name}: tracked {result['tracked']} < JAX "
+                             f"{ref['result']['tracked']} - {CLI_TRACKED_SLACK}")
+    if abs(result["keyframes"] - ref["result"]["keyframes"]) > CLI_KF_SLACK:
+        raise AssertionError(f"{name}: {result['keyframes']} keyframes, JAX "
+                             f"{ref['result']['keyframes']}")
+    ate_max = 2.0 * ref["result"]["ate_rmse_m"] + CLI_ATE_SLACK_M
+    if not result.get("ate_rmse_m", np.inf) <= ate_max:
+        raise AssertionError(f"{name}: ATE {result.get('ate_rmse_m')} m > {ate_max:.4f} m")
+    if got["imu_stage"] != ref["imu_stage"]:
+        raise AssertionError(f"{name}: imu_stage {got['imu_stage']}, JAX {ref['imu_stage']}")
+    if got["traj_rows"] != len(slam.trajectory):
+        raise AssertionError(f"{name}: {got['traj_rows']} trajectory rows for "
+                             f"{len(slam.trajectory)} records")
+    n_dispatch = -(-result["frames"] // batch)
+    if got["metric_events"] != ["dispatch"] * n_dispatch + ["final"]:
+        raise AssertionError(f"{name}: metric events {got['metric_events']}, expected "
+                             f"{n_dispatch} dispatch lines and a final one")
+    if got.get("checkpoint") != ref.get("checkpoint"):
+        raise AssertionError(f"{name}: checkpoint keys/dtypes {got.get('checkpoint')} differ "
+                             f"from the JAX CLI's {ref.get('checkpoint')}")
+    return launches, meas
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
@@ -3332,7 +3556,11 @@ def main() -> int:
     log(f"[laps] loop correction: {json.dumps(corr)}")
     # phase 11: visual-inertial SLAM; 11a bench.py's stereo-inertial lap,
     # 11b one 4-DoF loop correction at full width
-    by_lap["stereo_inertial_lap"], si = lap("stereo_inertial_lap", run_si_lap, ref_si, dev, smi)
+    t0 = time.perf_counter()
+    si_in = si_inputs(ref_si)
+    log(f"[si] rendered {len(si_in[2])} stereo pairs in {time.perf_counter() - t0:.1f} s")
+    by_lap["stereo_inertial_lap"], si = lap("stereo_inertial_lap", run_si_lap, ref_si, si_in, dev,
+                                            smi)
     log(json.dumps(si_metric_line(si)))
     log(f"[laps] stereo-inertial lap: {json.dumps(si)}")
     by_lap["loop_4dof"], four = lap("loop_4dof", run_4dof, ref_4dof, dev, smi)
@@ -3368,6 +3596,22 @@ def main() -> int:
     by_lap["inertial_atlas_lap"], iatl = lap("inertial_atlas_lap", run_inertial_atlas_lap,
                                              ref_iatlas, dev, smi)
     log(f"[laps] inertial atlas lap: {json.dumps(iatl, default=float)}")
+    # phase 14: the CLI on dataset layouts; 14a EuRoC stereo-inertial
+    # (rectified on the card), 14b TUM RGB-D, 14c TUM-VI fisheye-inertial
+    # 14a and 14c lay out the first pairs that phases 11 and 12 rendered
+    L = _cli_layouts()
+    same = lambda a, b, n: all(np.array_equal(x[:n], y[:n]) for x, y in
+                               zip(L.stored_poses(a, n), L.stored_poses(b, n)))
+    if not same(ref_fe, ref_fe_vi, L.TUMVI_FRAMES):
+        raise AssertionError("the fisheye fixtures' poses differ: 14c cannot reuse 12's pairs")
+    rendered = {"cli_euroc": si_in[2], "cli_tum_rgbd": None, "cli_tumvi": fe_inputs[1]}
+    cli_meas = {}
+    for name in CLI_LAYOUTS:
+        by_lap[name], cli_meas[name] = lap(name, run_cli_layout, name,
+                                           load_fixture(os.path.join(
+                                               ROOT, "tests", "fixtures", f"{name}.json"), None),
+                                           ref_si, ref_fe_vi, dev, smi, rendered[name])
+        log(f"[laps] {name}: {json.dumps(cli_meas[name], default=float)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

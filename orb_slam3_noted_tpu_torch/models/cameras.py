@@ -153,6 +153,25 @@ def kb8_project_jac(params: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
+def undistort_points_radtan(params: torch.Tensor, dist: torch.Tensor, uv: torch.Tensor,
+                            iters: int = 8) -> torch.Tensor:
+    """Undistort (..., 2) pixels under the rad-tan model, ``dist`` = (k1, k2,
+    p1, p2, k3): ``iters`` fixed-point iterations, as ``cv::undistortPoints``
+    in the reference's ``Frame::UndistortKeyPoints``."""
+    fx, fy, cx, cy = params[0], params[1], params[2], params[3]
+    k1, k2, p1, p2, k3 = dist[0], dist[1], dist[2], dist[3], dist[4]
+    xd = (uv[..., 0] - cx) / fx
+    yd = (uv[..., 1] - cy) / fy
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        dx = 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        dy = p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        x, y = (xd - dx) / radial, (yd - dy) / radial
+    return torch.stack([x * fx + cx, y * fy + cy], dim=-1)
+
+
 _PROJECT = {PINHOLE: pinhole_project, KANNALA_BRANDT8: kb8_project}
 _UNPROJECT = {PINHOLE: pinhole_unproject, KANNALA_BRANDT8: kb8_unproject}
 _PROJECT_JAC = {PINHOLE: pinhole_project_jac, KANNALA_BRANDT8: kb8_project_jac}

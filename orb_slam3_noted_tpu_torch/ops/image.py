@@ -154,3 +154,10 @@ def stack_atlases(atlases: list) -> PyramidAtlas:
     if any(a.sizes != first.sizes for a in atlases):
         raise ValueError("stack_atlases: level sizes differ")
     return first._replace(image=torch.stack([a.image for a in atlases]))
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """(H, W, 3) in [0, 255] to (H, W), with the BT.601 weights that
+    ``cv::cvtColor`` uses."""
+    w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
+    return img @ w

@@ -958,11 +958,8 @@ class StereoSLAM(MonoSLAM):
         # extraction (K1, K2 and K3 once each) and matching (K4 on the two
         # images' atlases, views of the pair's)
         with torch.profiler.record_function(EXTRACTION_RANGE):
-            if isinstance(img_left, torch.Tensor):
-                pair = torch.stack([img_left, img_right]).to(self.device, torch.float32)
-            else:
-                pair = torch.as_tensor(np.stack([np.asarray(img_left), np.asarray(img_right)]),
-                                       dtype=torch.float32).to(self.device)
+            pair = torch.stack([self._on_device(img_left, torch.float32),
+                                self._on_device(img_right, torch.float32)])
             pyr, atlas = self._pyramid_atlas(pair)
             both = O.extract_from_atlas(atlas, **self._orb_args())
             feats, feats_r = (O.FrameFeatures(*(f[i] for f in both)) for i in range(2))
@@ -1098,9 +1095,8 @@ class RGBDSLAM(StereoSLAM):
     def process(self, img, depth_img, frame_id: int):
         cfg = self.cfg
         with torch.profiler.record_function(EXTRACTION_RANGE):
-            im = torch.as_tensor(np.asarray(img), dtype=torch.float32).to(self.device)
-            feats = self._extract(im)
-        dmap = torch.as_tensor(np.asarray(depth_img), dtype=torch.float32).to(self.device)
+            feats = self._extract(self._on_device(img, torch.float32))
+        dmap = self._on_device(depth_img, torch.float32)
         H, W = dmap.shape
         # bilinear depth at sub-pixel keypoints, nearest when any neighbour
         # is invalid (depth edges)

@@ -30,6 +30,9 @@ bench configuration (``scripts/loop_scaffold.py``), written to
 ``tests/fixtures/loop_4dof_full.json``, which ``--mode loop_4dof`` writes
 alone: the 4-DoF pose graph of a loop on the drifted 64-keyframe map (see
 :func:`main_loop_4dof`).
+``--mode cli_euroc|cli_tum_rgbd|cli_tumvi``: the JAX package's CLI on the
+dataset layouts of ``chip_smoke.py``'s phase 14, written by
+``scripts/cli_layouts.py`` (see :func:`main_cli`).
 ``--mode fisheye_stereo``: the TUM-VI 512x512 fisheye lap (``TUM_512.yaml``'s
 two Kannala-Brandt cameras, a right camera rotated against the left, 1500
 features) through ``FisheyeStereoSLAM.process``, written to
@@ -94,6 +97,9 @@ FIXTURES = {
     "atlas": ("atlas_lap.json", 0),
     "stereo_atlas": ("stereo_atlas_lap.json", 0),
     "inertial_atlas": ("inertial_atlas_lap.json", 0),
+    "cli_euroc": ("cli_euroc.json", 0),
+    "cli_tum_rgbd": ("cli_tum_rgbd.json", 0),
+    "cli_tumvi": ("cli_tumvi.json", 0),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -224,6 +230,8 @@ def main():
         return main_fisheye(args.out, n, inertial=args.mode == "fisheye_inertial")
     if args.mode in ("atlas", "stereo_atlas", "inertial_atlas"):
         return main_atlas(args.out, args.mode)
+    if args.mode.startswith("cli_"):
+        return main_cli(args.out, args.mode)
 
     import jax
 
@@ -1611,6 +1619,95 @@ def main_atlas(out_path: str, mode: str):
                                    "merges", "n_kf", "imu_stage", "merge_attempts", "times",
                                    "checkpoint_schema", "kf_frame_ids")}))
     print(f"wall {wall:.1f} s", file=sys.stderr)
+
+
+# ---------------------------------------------------------------------------
+# the CLI on dataset layouts (chip_smoke.py phase 14)
+
+def _jax_render(name: str, case: dict) -> list:
+    """The frames of layout ``name``, rendered by the JAX package from the
+    stored poses: rectified stereo pairs, (image, depth) or fisheye pairs."""
+    from orb_slam3_noted_tpu.models.cameras import Camera, KANNALA_BRANDT8
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom, stereo_pair
+
+    rwc, twc = case["poses"]
+    if case["kind"] == "fisheye":
+        room = BoxRoom(**case["room"])
+        cam1, cam2 = Camera(KANNALA_BRANDT8, case["camera1"]), Camera(KANNALA_BRANDT8, case["camera2"])
+        return [tuple(x.astype(np.uint8) for x in fisheye_pair(room, cam1, cam2, case["rlr"], R, t))
+                for R, t in zip(rwc, twc)]
+    room = BoxRoom(seed=0)
+    W_, H_ = case["width"], case["height"]
+    if case["kind"] == "stereo":
+        return [tuple(x.astype(np.uint8) for x in stereo_pair(room, R, t, case["camera"], W_, H_,
+                                                              case["baseline"])[:2])
+                for R, t in zip(rwc, twc)]
+    out = []
+    for R, t in zip(rwc, twc):
+        img, depth = room.render(R, t, case["camera"], W_, H_, return_depth=True)
+        out.append((img.astype(np.uint8), depth.astype(np.float32)))
+    return out
+
+
+def main_cli(out_path: str, name: str):
+    """The JAX package's CLI on one of phase 14's layouts, in a temporary
+    directory: the same files ``chip_smoke.py`` writes for the port (the
+    renders are the JAX package's, from the same stored poses).  Records the
+    parsed settings, the result line, the trajectory's rows, the metric
+    lines' events and the final ``imu_stage``, the checkpoint's keys and
+    dtypes, and whether the frames came through the native decoder."""
+    import contextlib
+    import io
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import cli_layouts as L
+
+    from orb_slam3_noted_tpu import cli
+    from orb_slam3_noted_tpu.io import datasets as D
+    from orb_slam3_noted_tpu.io.yaml_compat import load_settings, load_stereo_rectification
+    from orb_slam3_noted_tpu_torch.io.images import write_png
+
+    fix = lambda n: json.load(open(os.path.join(ROOT, "tests", "fixtures", n)))
+    si_ref, fe_ref = fix(L.SI_FIXTURE), fix(L.FE_FIXTURE)
+    case = L.cases(si_ref, fe_ref)[name]
+    t0 = time.time()
+    frames = _jax_render(name, case)
+    print(f"[{name}] rendered {len(frames)} frames in {time.time() - t0:.1f} s", flush=True)
+    native = []
+    read = D.Sequence.read
+
+    def watched_read(self, i):
+        out = read(self, i)
+        native.append(getattr(self, "_lloader", None) is not None)
+        return out
+
+    D.Sequence.read = watched_read
+    with tempfile.TemporaryDirectory() as root:
+        argv = L.write_case(name, case, frames, root, si_ref, fe_ref, write_png)
+        settings = argv[argv.index("--settings") + 1]
+        cfg, imu = load_settings(settings)
+        rect = load_stereo_rectification(settings)
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        wall = time.time() - t0
+        result = json.loads(buf.getvalue().strip().splitlines()[-1])
+        rec = L.cli_outputs(root, result)
+    D.Sequence.read = read
+    rec.update(L.settings_record(cfg, imu))
+    rec.update({"mode": name, "frames": case["n"], "argv_tail": [a for a in argv if "/" not in a],
+                "rectification": rect is not None, "native_decoder": bool(native) and all(native),
+                "wall_s": wall, "source": "scripts/torch_port_reference_lap.py --mode " + name})
+    print(f"[{name}] {json.dumps(result)}; {rec['traj_rows']} trajectory rows, "
+          f"{len(rec['metric_events'])} metric lines, imu_stage {rec['imu_stage']}, native "
+          f"decoder {rec['native_decoder']}, {wall:.1f} s", flush=True)
+    with open(out_path, "w") as f:
+        json.dump(rec, f, indent=1, default=float)
 
 
 if __name__ == "__main__":

@@ -23,16 +23,23 @@ from orb_slam3_noted_tpu.optim import factors as JF
 from orb_slam3_noted_tpu.optim import inertial_ba as JBA
 from orb_slam3_noted_tpu.optim import vi_factors as JV
 from orb_slam3_noted_tpu.optim.pose_opt import PoseObs as JPoseObs
+from orb_slam3_noted_tpu.io import checkpoint as jck
 from orb_slam3_noted_tpu.pipeline import inertial_system as jis
+from orb_slam3_noted_tpu.pipeline import map_state as jms
+from orb_slam3_noted_tpu.pipeline import tracking as jtr
 from orb_slam3_noted_tpu.utils.synthetic import BoxRoom
 from orb_slam3_noted_tpu_torch.imu import preintegration as P
+from orb_slam3_noted_tpu_torch.io import checkpoint as tck
 from orb_slam3_noted_tpu_torch.io.config import config_from
 from orb_slam3_noted_tpu_torch.models import cameras as tcam
 from orb_slam3_noted_tpu_torch.optim import factors as TF
 from orb_slam3_noted_tpu_torch.optim import inertial_ba as TBA
 from orb_slam3_noted_tpu_torch.optim import vi_factors as TV
 from orb_slam3_noted_tpu_torch.optim.pose_opt import PoseObs
+from orb_slam3_noted_tpu_torch.ops import orb as torb
 from orb_slam3_noted_tpu_torch.pipeline import inertial_system as tis
+from orb_slam3_noted_tpu_torch.pipeline import map_state as tms
+from orb_slam3_noted_tpu_torch.pipeline import tracking as ttr
 from test_fisheye_inertial import cam_pose, imu_between
 from test_torch_fisheye import BASELINE, KB, KB2, rlr, rows_close
 from test_torch_vi_ba import assert_states_close, t, tcalib, tpre, tstate
@@ -45,10 +52,14 @@ W = H = 384
 FPS = 10.0
 LAP_FRAMES = 12       # 1.1 s: the IMU init runs at the last frame
 # the lap's camera centres: cam_pose moves the camera up to 7.6 cm between
-# frames, and the packages' float32 roundings (the fisheye DLT's depths
-# differ by up to 3.6 mm at frame 0) grow along the lap to 13.4 mm apart
-# (measured), while each package is 2-3 cm off the truth
+# frames.  The packages part at frame 1, whose pose is predicted at keyframe
+# 0's own pose: there the predicted octave ceil(log(d_max / d) / log 1.2)
+# is an integer up to the last bit of float32, and 79 of 304 points take
+# the other octave (test_lap_parts_at_the_keyframe_pose below); the
+# difference grows along the lap to 12.8-13.4 mm (measured on two CPUs),
+# while each package is 1-3 cm off the truth
 LAP_POS_TOL_M = 0.02
+OCTAVE_POSE_TOL_M = 1e-5  # frame 1's pose with the JAX package's octaves
 LAP_GRAVITY_DEG = 0.5  # the IMU init's gravity (measured 0.15 deg apart)
 
 
@@ -269,3 +280,57 @@ def test_fisheye_inertial_batch_is_a_loop_over_process(laps, lap_inputs):
         assert a.state == b.state and a.n_inliers == b.n_inliers
         np.testing.assert_array_equal(a.Rcw, b.Rcw)
         np.testing.assert_array_equal(a.tcw, b.tcw)
+
+
+def test_lap_parts_at_the_keyframe_pose(lap_inputs, tmp_path, monkeypatch):
+    """Where the lap's two runs part: from the JAX run's state after frame 0
+    (its checkpoint, restored into the port) and on the JAX run's frame-1
+    features, frame 1 is predicted at keyframe 0's own pose.  There each
+    point's predicted octave ``ceil(log(d_max / d) / log 1.2)`` is an
+    integer up to float32's last bit (``d_max`` is the creation distance
+    times 1.2 to the octave), so the packages' ``log`` decides it, and some
+    points take the other octave.  With the JAX package's octaves in the
+    port, frame 1 matches the same features and lands on the same pose."""
+    pairs, times, chunks, _ = lap_inputs
+    jcfg = lap_config()
+    js = jis.FisheyeStereoInertialSLAM(jcfg)
+    a, g, ts = chunks[0]
+    js.process(pairs[0][0], pairs[0][1], 0, t=times[0], acc=a, gyr=g, imu_t=ts)
+    ck = str(tmp_path / "frame0.npz")
+    jck.save_map(ck, js)
+    port = tis.FisheyeStereoInertialSLAM(config_from(jcfg), device=CPU)
+    tck.load_map(ck, port)
+    feats, _, uv2 = js._fisheye_frontend(pairs[1][0], pairs[1][1])
+    ft = torb.from_numpy(jax.device_get(feats)._asdict(), device=CPU)
+    uv2t = torch.from_numpy(np.array(uv2))
+    I3, z3 = jnp.eye(3, dtype=jnp.float32), jnp.zeros(3, jnp.float32)
+    I3t, z3t = torch.eye(3), torch.zeros(3)
+    proj = (W, H, jcfg.n_levels, jcfg.scale_factor)
+    _, lj, vj = jtr.project_map_points(js.m, I3, z3, js.cam, *proj)
+    _, lt, vt = ttr.project_map_points(port.m, I3t, z3t, port.cam, *proj)
+    vis = np.asarray(vj)
+    np.testing.assert_array_equal(vt.numpy(), vis)
+    differ = vis & (np.asarray(lj) != lt.numpy())
+    assert 0 < differ.sum() < vis.sum() // 2
+    d = np.linalg.norm(np.asarray(js.m.mp_pos, np.float64)[differ], axis=1)
+    x = np.log(np.asarray(js.m.mp_dmax, np.float64)[differ] / d) / np.log(1.2)
+    assert np.abs(x - np.round(x)).max() < 1e-5
+
+    mask_j = jms.local_map_mask(js.m, js.last_kf_slot, n_neighbors=jcfg.local_window)[0]
+    mask_t = tms.local_map_mask(port.m, port.last_kf_slot, n_neighbors=jcfg.local_window)[0]
+    rj = jtr.track_frame(js.m, feats, I3, z3, mask_j, js.cam, jcfg, bf=jcfg.bf, feat_uv2=uv2)
+    plain = ttr.project_map_points
+
+    def jax_octaves(m, Rcw, tcw, cam, *args):
+        uv, _, visible = plain(m, Rcw, tcw, cam, *args)
+        lvl = jtr.project_map_points(js.m, jnp.asarray(Rcw.numpy()), jnp.asarray(tcw.numpy()),
+                                     js.cam, *args)[1]
+        return uv, torch.from_numpy(np.array(lvl)), visible
+
+    monkeypatch.setattr(ttr, "project_map_points", jax_octaves)
+    rt = ttr.track_frame(port.m, ft, I3t, z3t, mask_t, port.cam, port.cfg, bf=jcfg.bf,
+                         feat_uv2=uv2t)
+    assert int(rt[2]) == int(rj[2]) > 100
+    np.testing.assert_array_equal(rt[3].numpy(), np.asarray(rj[3]))
+    np.testing.assert_allclose(rt[1].numpy(), np.asarray(rj[1]), rtol=0, atol=OCTAVE_POSE_TOL_M)
+    np.testing.assert_allclose(rt[0].numpy(), np.asarray(rj[0]), rtol=0, atol=OCTAVE_POSE_TOL_M)

@@ -68,7 +68,8 @@ def test_port_names_neither_jax_nor_the_jax_package():
             "pose_graph.py", "ba.py", "gba.py", "loop_closing.py", "preintegration.py",
             "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
             "inertial_system.py", "fisheye_stereo.py", "cameras.py", "atlas.py",
-            "inertial_atlas.py", "checkpoint.py"} <= {
+            "inertial_atlas.py", "checkpoint.py", "cli.py", "demo.py", "yaml_compat.py",
+            "datasets.py", "images.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -82,6 +83,25 @@ def test_port_names_neither_jax_nor_the_jax_package():
             for n in names:
                 root = n.split(".")[0]
                 assert root not in ("jax", "jaxlib", "orb_slam3_noted_tpu"), (path, n)
+
+
+def test_port_imports_no_cv2_pil_or_matplotlib():
+    """The card's machine has none of them: every module of the port,
+    ``chip_smoke.py`` and the layout writer it shares with the reference
+    script read and write images through ``io/images.py``."""
+    files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py"),
+                                      os.path.join(ROOT, "scripts", "cli_layouts.py")]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in ("cv2", "PIL", "matplotlib"), (path, n)
 
 
 def test_port_never_asks_for_a_gpu_or_catches_a_launch():
@@ -224,3 +244,41 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
     )
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_cli_and_demo_default_to_the_cuda_device(monkeypatch, tmp_path):
+    """``cli`` and ``demo`` put the SLAM state on ``cuda`` unless
+    ``--device`` names another: the allocation is intercepted before it
+    happens.  The CLI reads the frames with the port's reader (host numpy)
+    and moves them, and the rectification maps, to that device."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch import cli, demo
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import map_state
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def empty_map(cfg, device=None):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(map_state, "empty_map", empty_map)
+    with pytest.raises(Stop):
+        cli.build_system(SlamConfig(), "stereo")
+    with pytest.raises(Stop):
+        demo.main(["2", "--small"])
+    assert seen == [torch.device("cuda")] * 2
+    os.makedirs(tmp_path / "mav0" / "cam0" / "data")
+    (tmp_path / "mav0" / "cam0" / "data.csv").write_text("#timestamp [ns],filename\n")
+    settings = os.path.join(ROOT, "tests", "fixtures", "settings_mono_pinhole.yaml")
+    with pytest.raises(Stop):
+        cli.main(["--seq", str(tmp_path), "--settings", settings, "--mode", "mono",
+                  "--out", str(tmp_path / "t.txt")])
+    with pytest.raises(Stop):
+        cli.main(["--seq", str(tmp_path), "--settings", settings, "--mode", "mono",
+                  "--out", str(tmp_path / "t.txt"), "--device", "cpu"])
+    assert seen[2:] == [torch.device("cuda"), torch.device("cpu")]
