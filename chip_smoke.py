@@ -77,12 +77,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
    transform (device and per-call ms beside its bound) and frames/s;
 10. loop closing.  (a) ``bench.py``'s 400-frame accuracy lap
    (``bench.py:215-309``: a pendulum that leaves the start twice and comes
-   back) at the monocular configuration, frames rendered from the JAX run's
+   back), cut to its first 200 frames (one excursion each way and back to
+   the start) to keep the run's time, at the monocular configuration,
+   frames rendered from the JAX run's
    camera poses and staged on the card once, ``process_batch`` in batches
    of 16 with ``bench.py``'s keyframe override and ``flush()`` at the end,
    once with loop closing off (``_maybe_close_loop`` is
    ``_register_reloc_kf``) and once on, then a third arm with loop closing
-   on, 1.4 m excursions instead of 0.7 and the first 224 frames (the JAX
+   on and 1.4 m excursions instead of 0.7 over all 400 frames (the JAX
    package closes a loop there, on ``bench.py``'s lap none), each arm on
    the JAX run's two-view
    draws and, where the pair masks agree, its Sim(3) RANSAC draws, held to
@@ -93,7 +95,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
    16; each loop's distance from the true relative pose reported), keyframe
    insertions, one detection per keyframe inserted after initialisation,
    K1-K3 once per extraction dispatch and K4 never; it
-   prints ``bench.py``'s ``mono_400f_loop_ate`` line, frames/s, batch
+   prints ``bench.py``'s loop-ATE line for those 200 frames
+   (``mono_200f_loop_ate``), frames/s, batch
    latency (p50, max) and host ms per detection drain.  (b) a full-width
    loop correction: the drifted map of ``scripts/loop_scaffold.py`` (64
    keyframes, 1200 features a keyframe, 2400 map points, the tail 0.3 /
@@ -194,8 +197,34 @@ Phases, each of which raises on failure (exit code 1, no result line):
    12's renders).  Each
    reports frames/s (the CLI's), decode ms a frame (the loader's reader and
    prefetcher over the layout);
+15. the live node (``node.SlamNode`` and ``serve``) over a TCP socket on
+   127.0.0.1, ``serve`` in a thread and the producer in this one, held to
+   the JAX package's node run in process on the same frames
+   (``tests/fixtures/node_*.json``, ``scripts/torch_port_reference_lap.py
+   --mode node_stereo_inertial|node_rgbd``).  (a) ``stereo-inertial`` at
+   phase 11's configuration: its first 80 pairs, each frame one IMUS block
+   (the 200 Hz samples up to the frame's time, from offset 4 as the
+   protocol documents), IMG0 and IMG1, then its POSE before the next
+   frame: 80 POSE records and FINI, tracked >= JAX - 2, the SE(3) ATE of
+   the published ``twc`` <= 2 x JAX + 2 mm, ``imu_stage`` equal, keyframes
+   +-2, K1-K4 80 launches each; round trip (IMG0 sent to POSE received)
+   p50 / p95 / max with the first frame apart, frames/s.  (b) ``rgbd`` at
+   the stereo bench configuration, the mapper on, phase 4's 48 frames as
+   IMG0 + DPT1 (f32 depth) lock-step, ``keep_frame_overlay`` on and a
+   ``LiveViewer`` on the same system: after frames 24 and 48
+   ``/state.json`` (its counts those of the map) and ``/frame.png``
+   (decoded by the port's reader: ``draw_frame`` of the last frame),
+   tracked >= JAX - 2, RMSE <= 2 x JAX + 2 mm, keyframes +-1, the overlay's
+   matched keypoints on the last frame >= 90% of JAX's, ``export_map_html``
+   embedding ``map_snapshot``'s dict, ``save_map_png`` decoding, K1-K3 48
+   and K4 0; ms of each request, of ``save_map_png`` and
+   ``export_map_html``.  (c) ``stereo`` with ``realtime`` (the backlog
+   dropped to the newest frame), phase 5's 48 pairs sent at 20 frames/s
+   without waiting: published + dropped = 48, FINI's ``n_frames`` the
+   published count, POSE times increasing, no exception in the worker,
+   K1-K4 once per published frame; tracked, drops, round trip;
 
-after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c and 14a-c, every kernel against its plain
+after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c, 14a-c and 15a-c, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -211,6 +240,7 @@ import dataclasses
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import time
@@ -349,6 +379,19 @@ ATLAS_TILT_RAD, ATLAS_YAW_DEG, ATLAS_KF_MARGIN = 1e-6, 2.0, 2
 # 13d: the checkpoint taken right after the merge, restored into a fresh
 # MonoSLAM; the next frames in the restored and the original system
 ATLAS_CKPT_FRAMES = 16
+# phase 15, the live node against the JAX node's runs: tracked >= JAX - 2,
+# accuracy <= 2 x JAX + 2 mm (RMSE_FACTOR, RMSE_SLACK_M), keyframes within
+# +-2 (stereo-inertial) and +-1 (RGB-D), imu_stage equal, the overlay's
+# matched keypoints on the last frame >= 90% of JAX's; the viewer is read
+# after these frames; frames go out at camera rate in 15c
+NODE_SI_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "node_stereo_inertial.json")
+NODE_RGBD_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "node_rgbd.json")
+NODE_SI_FRAMES = 80
+NODE_TRACKED_MARGIN, NODE_SI_KF_MARGIN, NODE_RGBD_KF_MARGIN = 2, 2, 1
+NODE_MATCHED_SHARE = 0.9
+NODE_VIEW_FRAMES = (24, 48)
+NODE_CAMERA_FPS = 20.0
+NODE_RECV_TIMEOUT_S = 300  # a frame's POSE (the first builds nothing: phase 2 built the kernels)
 # NVIDIA H100 SXM data sheet: device memory rate, float32 rate outside the
 # tensor cores (every kernel here is float32 or integer arithmetic)
 PEAK_BYTES_PER_S = 3.35e12
@@ -553,14 +596,32 @@ def _render_job(job):
     return room.render(R, t, CAM_PARAMS, W, H).astype(np.uint8)
 
 
-def render(jobs: list) -> list:
-    """The frames of ``jobs`` (see ``_render_job``), rendered by a pool of up
-    to 8 worker processes, closed before it returns: the renderer is numpy
-    on the CPU, ~0.2 s a 752x480 image, and the laps render ~1,400."""
-    import multiprocessing
+_POOL = []
 
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        return pool.map(_render_job, jobs, chunksize=4)
+
+def pool_map(fn, jobs: list) -> list:
+    """``fn`` over ``jobs`` on one pool of up to 8 spawned worker processes,
+    started at the first call and kept for the rest of the run (each worker
+    imports torch once and keeps its rooms); ``close_pool`` ends it."""
+    if not _POOL:
+        import multiprocessing
+
+        _POOL.append(multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)))
+    return _POOL[0].map(fn, jobs, chunksize=4)
+
+
+def close_pool() -> None:
+    while _POOL:
+        pool = _POOL.pop()
+        pool.close()
+        pool.join()
+
+
+def render(jobs: list) -> list:
+    """The frames of ``jobs`` (see ``_render_job``), rendered by the worker
+    pool: the renderer is numpy on the CPU, ~0.2 s a 752x480 image, and the
+    laps render ~1,400."""
+    return pool_map(_render_job, jobs)
 
 
 def mono_inputs():
@@ -1701,14 +1762,14 @@ _LOOP_FRAMES = {}
 def loop_inputs(ref: dict, arm: str | None = None):
     """((camera-to-world rotations (n, 3, 3), camera centres (n, 3)), (n, H,
     W) uint8 images) of ``bench.py``'s 400-frame pendulum lap, rendered from
-    the JAX run's camera poses (the wide arm's own where ``arm`` has them)."""
+    the JAX run's camera poses (the wide arm's own where ``arm`` has them),
+    the first ``frames`` of ``arm`` where one is named (all 400 else)."""
     import base64
 
-    if arm is not None and "rwc_f32" in ref[arm]:
-        ref = ref[arm]
-    n = ref["frames"]
-    rwc = np.frombuffer(base64.b64decode(ref["rwc_f32"]), "<f4").reshape(n, 3, 3)
-    twc = np.frombuffer(base64.b64decode(ref["twc_f64"]), "<f8").reshape(n, 3)
+    n = ref["frames"] if arm is None else ref[arm]["frames"]
+    src = ref[arm] if arm is not None and "rwc_f32" in ref[arm] else ref
+    rwc = np.frombuffer(base64.b64decode(src["rwc_f32"]), "<f4").reshape(-1, 3, 3)[:n]
+    twc = np.frombuffer(base64.b64decode(src["twc_f64"]), "<f8").reshape(-1, 3)[:n]
     key = (rwc.tobytes(), twc.tobytes())
     if key not in _LOOP_FRAMES:  # both arms of bench.py's lap share one render
         _LOOP_FRAMES.clear()
@@ -1862,7 +1923,8 @@ def run_loop_arm(frames, poses, loop_on: bool, dev, ref: dict | None = None) -> 
     if launches != want:
         raise AssertionError(f"loop lap: launch counts {launches}, expected {want}")
     meas = {
-        "loop_closing": loop_on, "init_frame": states.index("OK") if "OK" in states else None,
+        "frames": n, "loop_closing": loop_on,
+        "init_frame": states.index("OK") if "OK" in states else None,
         "tracked": len(idx), "ate_m": float(ate), "ate_scale": float(scale), "n_kf": s.n_kf,
         "kf_inserted": s.kf_inserted, "n_mp": s.n_mp,
         "loops_closed": s.loop_closer.loops_closed if s.loop_closer else 0,
@@ -1922,16 +1984,18 @@ def loop_summary(accepted: list) -> list:
 
 
 def loop_metric_line(off: dict, on: dict) -> dict:
-    """``bench.py``'s ``mono_400f_loop_ate`` line (``bench.py:283-294``)."""
-    return {"metric": "mono_400f_loop_ate", "value": round(on["ate_m"], 4), "unit": "m",
-            "vs_baseline": round(off["ate_m"] / max(on["ate_m"], 1e-9), 3),
+    """``bench.py``'s ``mono_400f_loop_ate`` line (``bench.py:283-294``),
+    named by the frames the arms ran (``mono_200f_loop_ate`` on phase 10a's
+    first 200)."""
+    return {"metric": f"mono_{on['frames']}f_loop_ate", "value": round(on["ate_m"], 4),
+            "unit": "m", "vs_baseline": round(off["ate_m"] / max(on["ate_m"], 1e-9), 3),
             "ate_loop_off_m": round(off["ate_m"], 4), "loops_closed": int(on["loops_closed"]),
-            "tracked_off": off["tracked"], "tracked_on": on["tracked"], "n_frames": LOOP_FRAMES}
+            "tracked_off": off["tracked"], "tracked_on": on["tracked"], "n_frames": on["frames"]}
 
 
 def run_loop_lap(ref: dict, dev, smi, arm: str) -> tuple[dict, dict]:
-    """Phase 10a, one arm: the 400-frame lap, staged on the card once, held
-    to the JAX run's arm."""
+    """Phase 10a, one arm: the arm's first frames of the 400-frame lap,
+    staged on the card once, held to the JAX run's arm."""
     import torch
 
     poses, imgs = loop_inputs(ref, arm)
@@ -2412,9 +2476,7 @@ def _render_fisheye_job(job):
 def fisheye_inputs(ref: dict):
     """(camera centres (n, 3), [(left, right) uint8], frame 0's depth map) of
     the fisheye lap, rendered by the port's KB8 ``render_fisheye`` from the
-    JAX run's camera poses (a pool of worker processes)."""
-    import multiprocessing
-
+    JAX run's camera poses (the worker pool)."""
     n = ref["frames"]
     rwc = b64_array(ref["rwc_f32"], "<f4", (n, 3, 3))
     twc = b64_array(ref["twc_f64"], "<f8", (n, 3))
@@ -2422,8 +2484,7 @@ def fisheye_inputs(ref: dict):
     Rlr = np.asarray(cfg["tlr_r"], np.float32).reshape(3, 3)
     jobs = [(ref["room"], tuple(ref["camera1"]), tuple(ref["camera2"]), Rlr, cfg["tlr_t"],
              rwc[k], twc[k], k == 0) for k in range(n)]
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        out = pool.map(_render_fisheye_job, jobs, chunksize=4)
+    out = pool_map(_render_fisheye_job, jobs)
     depth0 = out[0][2]
     return twc, [o[:2] for o in out], depth0
 
@@ -3268,18 +3329,13 @@ def _warp_job(job):
 
 
 def pool_warp(jobs) -> list:
-    """``scripts/cli_layouts.py``'s warps over a pool of worker processes."""
-    import multiprocessing
-
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        return pool.map(_warp_job, jobs, chunksize=4)
+    """``scripts/cli_layouts.py``'s warps over the worker pool."""
+    return pool_map(_warp_job, jobs)
 
 
 def cli_frames(case: dict) -> list:
     """The frames of a phase-14 layout, rendered by the port from the JAX
-    runs' stored poses (a pool of worker processes)."""
-    import multiprocessing
-
+    runs' stored poses (the worker pool)."""
     rwc, twc = case["poses"]
     if case["kind"] == "fisheye":
         jobs = [(case["room"], case["camera1"], case["camera2"], case["rlr"], case["tlr"], R, t,
@@ -3290,8 +3346,7 @@ def cli_frames(case: dict) -> list:
         jobs = [(case["kind"], R, t, case["camera"], case["width"], case["height"], *extra)
                 for R, t in zip(rwc, twc)]
         fn = _render_cli_job
-    with multiprocessing.get_context("spawn").Pool(min(8, os.cpu_count() or 1)) as pool:
-        return pool.map(fn, jobs, chunksize=4)
+    return pool_map(fn, jobs)
 
 
 def run_cli_layout(name: str, ref: dict, si_ref: dict, fe_ref: dict, dev, smi, rendered=None):
@@ -3429,6 +3484,338 @@ def run_cli_layout(name: str, ref: dict, si_ref: dict, fe_ref: dict, dev, smi, r
     return launches, meas
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the live node and the viewer
+
+def start_server(node):
+    """The port's ``serve(node)`` on 127.0.0.1, an ephemeral port, in a
+    thread; returns (the producer's socket, the thread, [what serve raised])."""
+    import socket
+    import threading
+
+    from orb_slam3_noted_tpu_torch import node as N
+
+    ready, bound, raised = threading.Event(), [], []
+
+    def run():
+        try:
+            N.serve(node, "127.0.0.1", 0, ready_event=ready, _bound=bound)
+        except BaseException as e:
+            raised.append(e)
+            ready.set()
+
+    th = threading.Thread(target=run, daemon=True, name="serve")
+    th.start()
+    if not ready.wait(60) or not bound:
+        raise AssertionError(f"node server did not start: {raised}")
+    return socket.create_connection(bound[0], timeout=NODE_RECV_TIMEOUT_S), th, raised
+
+
+def img_msg(t, img) -> bytes:
+    h, w = img.shape
+    return struct.pack("<dII", t, w, h) + np.ascontiguousarray(img, np.uint8).tobytes()
+
+
+def img2_msg(img, dtype) -> bytes:
+    h, w = img.shape
+    return struct.pack("<II", w, h) + np.ascontiguousarray(img, dtype).tobytes()
+
+
+def recv_json(cli):
+    from orb_slam3_noted_tpu_torch.node import _recv_msg
+
+    tag, payload = _recv_msg(cli)
+    return tag, json.loads(bytes(payload))
+
+
+def node_imu_blocks(times, acc, gyr, ts) -> list:
+    """Each frame's IMUS samples: those after the previous frame's block up
+    to and including the frame's time (``scripts/torch_port_reference_lap.py
+    --mode node_stereo_inertial`` splits them the same way)."""
+    out, start = [], 0
+    for t in times:
+        stop = int(np.searchsorted(ts, t + 1e-9, side="right"))
+        out.append(np.column_stack([ts[start:stop], acc[start:stop], gyr[start:stop]]))
+        start = stop
+    return out
+
+
+def finish_node(cli, th, raised, node, tag: str) -> dict:
+    """DONE, then FINI; the server thread ends and the worker raised
+    nothing."""
+    from orb_slam3_noted_tpu_torch.node import _send_msg
+
+    _send_msg(cli, b"DONE", b"")
+    while True:
+        kind, msg = recv_json(cli)
+        if kind == b"FINI":
+            break
+    cli.close()
+    th.join(60)
+    if th.is_alive() or raised or node.error is not None:
+        raise AssertionError(f"{tag}: server alive {th.is_alive()}, raised {raised}, worker "
+                             f"{node.error!r}")
+    return msg
+
+
+def latency_stats(ms: list) -> dict:
+    a = np.asarray(ms[1:], np.float64)
+    return {"first_ms": float(ms[0]), "p50_ms": float(np.percentile(a, 50)),
+            "p95_ms": float(np.percentile(a, 95)), "max_ms": float(a.max())}
+
+
+def run_node_si(ref: dict, si_ref: dict, si_in, dev, smi) -> tuple[dict, dict]:
+    """15a: the stereo-inertial node over TCP, lock-step: per frame one
+    IMUS block (the samples up to the frame's time), IMG0 and IMG1, then
+    its POSE before the next frame.  Held to the JAX node's run
+    (``tests/fixtures/node_stereo_inertial.json``)."""
+    from orb_slam3_noted_tpu_torch import node as N
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.utils.evaluation import ate_rmse
+
+    n = ref["frames"]
+    if ref["config"] != si_ref["config"] or ref["bf"] != si_ref["bf"]:
+        raise AssertionError("15a: the node fixture's configuration is not phase 11's")
+    twc, times, pairs, chunks = si_in
+    acc, gyr, ts = (np.concatenate([c[k] for c in chunks]) for k in range(3))
+    blocks = node_imu_blocks(times[:n], acc, gyr, ts)
+    if [len(b) for b in blocks] != ref["imu_per_frame"]:
+        raise AssertionError("15a: IMU blocks differ from the JAX run's")
+    node = N.SlamNode(si_config(si_ref), "stereo-inertial", device=dev)
+    ck.reset_launch_counts()
+    cli, th, raised = start_server(node)
+    poses, lat = [], []
+    t0 = time.perf_counter()
+    for k in range(n):
+        N._send_msg(cli, b"IMUS", struct.pack("<I", len(blocks[k]))
+                    + np.ascontiguousarray(blocks[k], "<f8").tobytes())
+        ts_send = time.perf_counter()
+        N._send_msg(cli, b"IMG0", img_msg(times[k], pairs[k][0]))
+        N._send_msg(cli, b"IMG1", img2_msg(pairs[k][1], np.uint8))
+        kind, msg = recv_json(cli)
+        lat.append((time.perf_counter() - ts_send) * 1e3)
+        if kind != b"POSE" or msg.get("frame_id") != k:
+            raise AssertionError(f"15a: frame {k}: {kind} {msg}")
+        poses.append(msg)
+    wall = time.perf_counter() - t0
+    fini = finish_node(cli, th, raised, node, "15a")
+    launches = ck.launch_counts()
+    slam = node.slam
+    states = [p["state"] for p in poses]
+    ok = np.asarray([st == "OK" for st in states])
+    est = np.asarray([p["twc"] for p in poses], np.float64)
+    ate = float(ate_rmse(est[ok], twc[:n][ok], with_scale=False)[0])
+    meas = {"frames": n, "tracked": int(ok.sum()), "ate_se3_m": ate, "imu_stage": slam.imu_stage,
+            "n_kf": slam.n_kf, "kf_inserted": slam.kf_inserted, "fini": fini,
+            "fps": n / wall, "latency": latency_stats(lat), "card": smi}
+    log(f"[node 15a] tracked {meas['tracked']}/{n} (JAX {ref['tracked']}), ATE SE(3) of the "
+        f"published twc {ate * 1e3:.2f} mm (JAX {ref['ate_se3_m'] * 1e3:.2f}), imu_stage "
+        f"{slam.imu_stage} (JAX {ref['imu_stage']}), keyframes {slam.n_kf} (JAX {ref['n_kf']}); "
+        f"{meas['fps']:.2f} frames/s lock-step, round trip (IMG0 sent to POSE received) "
+        f"{json.dumps(meas['latency'])}; launches {launches}; {smi}")
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": n,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"15a: launch counts {launches}, expected {want}")
+    if len(poses) != n or fini["n_frames"] != n:
+        raise AssertionError(f"15a: {len(poses)} POSE records, FINI {fini}")
+    if meas["tracked"] < ref["tracked"] - NODE_TRACKED_MARGIN:
+        raise AssertionError(f"15a: tracked {meas['tracked']} < {ref['tracked']} - "
+                             f"{NODE_TRACKED_MARGIN}")
+    if ate > RMSE_FACTOR * ref["ate_se3_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"15a: ATE {ate:.5f} m > 2 x {ref['ate_se3_m']:.5f} + 2 mm")
+    if slam.imu_stage != ref["imu_stage"]:
+        raise AssertionError(f"15a: imu_stage {slam.imu_stage}, JAX {ref['imu_stage']}")
+    if abs(slam.n_kf - ref["n_kf"]) > NODE_SI_KF_MARGIN:
+        raise AssertionError(f"15a: {slam.n_kf} keyframes, JAX {ref['n_kf']}")
+    return launches, meas
+
+
+def timed_get(port: int, path: str) -> tuple[bytes, float]:
+    import urllib.request
+
+    t0 = time.perf_counter()
+    body = urllib.request.urlopen(f"http://127.0.0.1:{port}/{path}", timeout=60).read()
+    return body, (time.perf_counter() - t0) * 1e3
+
+
+def run_node_rgbd(ref: dict, cfg, poses, frames, dev, smi) -> tuple[dict, dict]:
+    """15b: the RGB-D node (the mapper on) over TCP, IMG0 + DPT1 lock-step,
+    the overlay on and a ``LiveViewer`` on the same system: ``/state.json``
+    and ``/frame.png`` after frames 24 and 48, then ``export_map_html`` and
+    ``save_map_png``.  Held to the JAX node's run
+    (``tests/fixtures/node_rgbd.json``)."""
+    from orb_slam3_noted_tpu_torch.io.images import decode_png
+    from orb_slam3_noted_tpu_torch import node as N
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.utils import viewer as V
+
+    n = ref["frames"]
+    node = N.SlamNode(cfg, "rgbd", device=dev)
+    slam = node.slam
+    slam.keep_frame_overlay = True
+    matched = []
+
+    def on_pose(msg):  # in the worker thread, right after the frame
+        ov = slam.last_overlay
+        matched.append(None if ov is None or ov["frame_id"] != msg.get("frame_id")
+                       else int((ov["valid"] & ov["matched"]).sum()))
+
+    node.subscribe(on_pose)
+    viewer = V.LiveViewer(slam, port=0, host="127.0.0.1")
+    out_dir = os.path.join(ROOT, "build", "node_viewer")
+    os.makedirs(out_dir, exist_ok=True)
+    views, pub = [], []
+    try:
+        ck.reset_launch_counts()
+        cli, th, raised = start_server(node)
+        for k in range(n):
+            img, _, depth = frames[k]
+            N._send_msg(cli, b"IMG0", img_msg(k / NODE_CAMERA_FPS, img))
+            N._send_msg(cli, b"DPT1", img2_msg(depth, "<f4"))
+            kind, msg = recv_json(cli)
+            if kind != b"POSE" or msg.get("frame_id") != k:
+                raise AssertionError(f"15b: frame {k}: {kind} {msg}")
+            pub.append(msg)
+            if k + 1 in NODE_VIEW_FRAMES:
+                state, ms_state = timed_get(viewer.port, "state.json")
+                png, ms_png = timed_get(viewer.port, "frame.png")
+                with slam.lock:  # the node is idle between POSE and the next frame
+                    kf_valid, mp_valid = (int(x.sum()) for x in (slam.m.kf_valid,
+                                                                 slam.m.mp_valid))
+                    want = V.draw_frame(slam.last_image, slam.last_overlay)[:, :, ::-1]
+                st = json.loads(state)
+                got = decode_png(png)
+                if (st["n_kf"], st["n_mp"]) != (kf_valid, mp_valid):
+                    raise AssertionError(f"15b: state.json counts {st['n_kf']}, {st['n_mp']}; "
+                                         f"the map {kf_valid}, {mp_valid}")
+                if got.shape != (H + V.STATUS_ROWS, W, 3) or not np.array_equal(got, want):
+                    raise AssertionError(f"15b: /frame.png {got.shape} differs from draw_frame")
+                views.append({"frame": k + 1, "state_json_ms": ms_state, "frame_png_ms": ms_png,
+                              "state_json_bytes": len(state), "frame_png_bytes": len(png),
+                              "n_kf": st["n_kf"], "n_mp": st["n_mp"]})
+        fini = finish_node(cli, th, raised, node, "15b")
+        launches = ck.launch_counts()
+        t0 = time.perf_counter()
+        html_path = V.export_map_html(slam, os.path.join(out_dir, "map.html"))
+        ms_html = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        png_path = V.save_map_png(slam, os.path.join(out_dir, "map.png"))
+        ms_map = (time.perf_counter() - t0) * 1e3
+    finally:
+        viewer.close()
+    html = open(html_path).read()
+    head, tail = V._HTML_TEMPLATE.split("__DATA__")
+    if (not html.startswith(head) or not html.endswith(tail)
+            or json.loads(html[len(head):len(html) - len(tail)]) != V.map_snapshot(slam)):
+        raise AssertionError("15b: export_map_html does not embed map_snapshot's dict")
+    map_img = decode_png(open(png_path, "rb").read())
+    if map_img.shape != (V.PANEL, 2 * V.PANEL, 3):
+        raise AssertionError(f"15b: save_map_png decodes to {map_img.shape}")
+    states = [p["state"] for p in pub]
+    tracked = sum(st == "OK" for st in states)
+    gt = np.asarray([t for _, t in poses[:n]])
+    Rwc0, twc0 = poses[0]
+    err = np.linalg.norm(np.asarray([p["twc"] for p in pub]) - (gt - twc0) @ Rwc0, axis=1)
+    rmse = float(np.sqrt((err ** 2).mean()))
+    meas = {"frames": n, "tracked": tracked, "rmse_m": rmse, "n_kf": slam.n_kf,
+            "matched_last": matched[-1], "matched_last_jax": ref["overlay_matched"][-1],
+            "views": views, "export_map_html_ms": ms_html, "save_map_png_ms": ms_map,
+            "fini": fini, "card": smi}
+    log(f"[node 15b] tracked {tracked}/{n} (JAX {ref['tracked']}), RMSE of the published twc "
+        f"{rmse * 1e3:.2f} mm (JAX {ref['rmse_m'] * 1e3:.2f}), keyframes {slam.n_kf} (JAX "
+        f"{ref['n_kf']}), matched on the last frame {matched[-1]} (JAX "
+        f"{ref['overlay_matched'][-1]}); viewer {json.dumps(views)}; export_map_html "
+        f"{ms_html:.1f} ms, save_map_png {ms_map:.1f} ms; launches {launches}; {smi}")
+    want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"15b: launch counts {launches}, expected {want}")
+    if len(pub) != n or fini["n_frames"] != n:
+        raise AssertionError(f"15b: {len(pub)} POSE records, FINI {fini}")
+    if tracked < ref["tracked"] - NODE_TRACKED_MARGIN:
+        raise AssertionError(f"15b: tracked {tracked} < {ref['tracked']} - {NODE_TRACKED_MARGIN}")
+    if rmse > RMSE_FACTOR * ref["rmse_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"15b: RMSE {rmse:.5f} m > 2 x {ref['rmse_m']:.5f} + 2 mm")
+    if abs(slam.n_kf - ref["n_kf"]) > NODE_RGBD_KF_MARGIN:
+        raise AssertionError(f"15b: {slam.n_kf} keyframes, JAX {ref['n_kf']}")
+    if matched[-1] is None or matched[-1] < NODE_MATCHED_SHARE * ref["overlay_matched"][-1]:
+        raise AssertionError(f"15b: {matched[-1]} matched keypoints on the last frame, JAX "
+                             f"{ref['overlay_matched'][-1]}")
+    return launches, meas
+
+
+def run_node_realtime(cfg, frames, dev, smi) -> tuple[dict, dict]:
+    """15c: the stereo node with ``realtime`` (drop the backlog to the
+    newest frame), the pairs sent at camera rate without waiting for poses;
+    a reader thread takes the POSE records as they come."""
+    import threading
+
+    from orb_slam3_noted_tpu_torch import node as N
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+
+    n = len(frames)
+    node = N.SlamNode(cfg, "stereo", realtime=True, device=dev)
+    ck.reset_launch_counts()
+    cli, th, raised = start_server(node)
+    got, fini, failed = [], [], []
+
+    def reader():
+        try:
+            while True:
+                kind, msg = recv_json(cli)
+                if kind == b"FINI":
+                    fini.append(msg)
+                    return
+                got.append((time.perf_counter(), msg))
+        except BaseException as e:
+            failed.append(e)
+
+    rt = threading.Thread(target=reader, daemon=True, name="pose-reader")
+    rt.start()
+    sent = {}
+    t0 = time.perf_counter()
+    for k in range(n):
+        lag = t0 + k / NODE_CAMERA_FPS - time.perf_counter()
+        if lag > 0:
+            time.sleep(lag)
+        t = k / NODE_CAMERA_FPS
+        sent[t] = time.perf_counter()
+        N._send_msg(cli, b"IMG0", img_msg(t, frames[k][0]))
+        N._send_msg(cli, b"IMG1", img2_msg(frames[k][1], np.uint8))
+    N._send_msg(cli, b"DONE", b"")
+    rt.join(NODE_RECV_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    th.join(60)
+    cli.close()
+    launches = ck.launch_counts()
+    if failed or not fini or rt.is_alive() or th.is_alive() or raised or node.error is not None:
+        raise AssertionError(f"15c: reader {failed}, FINI {fini}, server {raised}, worker "
+                             f"{node.error!r}")
+    fini = fini[0]
+    ts = [m["t"] for _, m in got]
+    lat = [(tr - sent[m["t"]]) * 1e3 for tr, m in got]
+    meas = {"frames": n, "n_published": node.n_published, "n_dropped": node.n_dropped,
+            "tracked": sum(m["state"] == "OK" for _, m in got), "fini": fini,
+            "latency": latency_stats(lat) if len(lat) > 1 else None, "wall_s": wall, "card": smi}
+    log(f"[node 15c] {n} pairs at {NODE_CAMERA_FPS:g} frames/s: published {node.n_published}, "
+        f"dropped {node.n_dropped}, tracked {meas['tracked']}, round trip "
+        f"{json.dumps(meas['latency'])}; launches {launches}; {smi}")
+    if node.n_published + node.n_dropped != n or len(got) != node.n_published:
+        raise AssertionError(f"15c: published {node.n_published} + dropped {node.n_dropped} "
+                             f"!= {n}, or {len(got)} POSE records")
+    if fini["n_frames"] != node.n_published:
+        raise AssertionError(f"15c: FINI {fini}, published {node.n_published}")
+    if any(b <= a for a, b in zip(ts, ts[1:])):
+        raise AssertionError(f"15c: POSE times not increasing: {ts}")
+    k = node.n_published
+    want = {"fast_candidates": k, "gaussian_blur7": k, "brief_sample": k, "sad_stereo": k,
+            "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"15c: launch counts {launches}, expected {want}")
+    return launches, meas
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
@@ -3447,6 +3834,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     smi = nvidia_smi()
     log(f"[card] {smi}")
@@ -3527,9 +3915,12 @@ def main() -> int:
     by_lap, lap_err = {}, {}
 
     def lap(tag, run, *args):
+        t0 = time.perf_counter()
         with KernelInputs() as kept:
             out = run(*args)
         lap_err[tag] = kept.check(tag)
+        log(f"[time] {tag}: {time.perf_counter() - t0:.1f} s, {time.perf_counter() - t_start:.1f} "
+            "s since the start")
         return out
 
     by_lap["rgbd_lap"] = lap("rgbd_lap", run_rgbd_lap, cfg, poses, frames, ref_rgbd, dev)
@@ -3543,14 +3934,15 @@ def main() -> int:
         f"stereo batch {fps_sb:.2f} ({N_FRAMES} pairs), kidnapped mono {reloc['fps']:.2f} "
         f"(process, {RELOC_FRAMES} frames); {smi}")
     log(f"[laps] kidnapped lap: {json.dumps(reloc)}")
-    # phase 10: loop closing; 10a bench.py's 400-frame loop lap in both arms
+    # phase 10: loop closing; 10a the first 200 frames of bench.py's 400-frame
+    # loop lap in both arms, and the wide arm's 400
     # (each arm its own count), 10b a full-width loop correction
     loop = {}
     for arm in ("loop_off", "loop_on", "loop_wide"):
         by_lap[f"mono_loop_lap_{arm[5:]}"], loop[arm] = lap(
             f"mono_loop_lap_{arm[5:]}", run_loop_lap, ref_loop, dev, smi, arm)
     log(json.dumps(loop_metric_line(loop["loop_off"], loop["loop_on"])))
-    log(f"[laps] 400-frame loop lap: {json.dumps(loop)}")
+    log(f"[laps] loop lap: {json.dumps(loop)}")
     by_lap["loop_correction"], corr = lap("loop_correction", run_loop_correction, ref_corr, dev,
                                           smi)
     log(f"[laps] loop correction: {json.dumps(corr)}")
@@ -3612,6 +4004,19 @@ def main() -> int:
                                                ROOT, "tests", "fixtures", f"{name}.json"), None),
                                            ref_si, ref_fe_vi, dev, smi, rendered[name])
         log(f"[laps] {name}: {json.dumps(cli_meas[name], default=float)}")
+    # phase 15: the live node and the viewer; 15a the stereo-inertial node
+    # (phase 11's first pairs and IMU), 15b the RGB-D node with the viewer
+    # (phase 4's frames), 15c the stereo node at camera rate (phase 5's pairs)
+    ref_node_si = load_fixture(NODE_SI_FIXTURE, NODE_SI_FRAMES)
+    ref_node_rgbd = load_fixture(NODE_RGBD_FIXTURE)
+    node_meas = {}
+    by_lap["node_stereo_inertial"], node_meas["15a"] = lap(
+        "node_stereo_inertial", run_node_si, ref_node_si, ref_si, si_in, dev, smi)
+    by_lap["node_rgbd"], node_meas["15b"] = lap(
+        "node_rgbd", run_node_rgbd, ref_node_rgbd, cfg, poses, frames, dev, smi)
+    by_lap["node_stereo_realtime"], node_meas["15c"] = lap(
+        "node_stereo_realtime", run_node_realtime, cfg, [(f[0], f[1]) for f in frames], dev, smi)
+    log(f"[laps] live node: {json.dumps(node_meas, default=float)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)
@@ -3637,6 +4042,7 @@ def main() -> int:
     ]
     if EVENT_TIMED:
         log(f"[timing] device times taken with CUDA events, not the profiler: {EVENT_TIMED}")
+    log(f"[time] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3647,4 +4053,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        close_pool()
+    sys.exit(rc)

@@ -11,7 +11,9 @@ fallbacks, so that the port reads datasets on a machine without ``cv2``:
   ``cv2.imread(..., IMREAD_GRAYSCALE)``);
 - :func:`read_depth16`: a 16-bit gray PNG (TUM RGB-D depth) to (H, W)
   uint16;
-- :func:`write_png`: 8-bit gray or RGB, or 16-bit gray;
+- :func:`decode_png`: the bytes of a PNG to its samples, colour kept;
+- :func:`encode_png` / :func:`write_png`: 8-bit gray or RGB, or 16-bit
+  gray, to bytes or to a file;
 - :class:`Prefetcher`: frames decoded ahead in a thread pool, handed out in
   order.
 
@@ -153,6 +155,21 @@ def read_gray(path) -> np.ndarray:
     return out
 
 
+def decode_png(data: bytes) -> np.ndarray:
+    """The samples of an 8-bit PNG as they are stored, (H, W) for gray and
+    (H, W, channels) uint8 otherwise (no conversion to gray), or of a
+    16-bit gray PNG as (H, W) uint16."""
+    pix, ch, depth = _png_pixels(data, "PNG bytes")
+    h = pix.shape[0]
+    if depth == 16:
+        if ch != 1:
+            raise ValueError(f"decode_png: 16-bit PNG with {ch} channels; 16-bit gray only")
+        out = np.empty((h, pix.shape[1] // 2), np.uint16)
+        _library().be16_to_u16(_ptr(pix), out.size, _ptr(out))
+        return out
+    return pix.reshape(h, -1) if ch == 1 else pix.reshape(h, -1, ch)
+
+
 def read_depth16(path) -> np.ndarray:
     """A 16-bit gray PNG (TUM RGB-D depth) as (H, W) uint16."""
     with open(path, "rb") as f:
@@ -174,9 +191,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(kind + body) & 0xFFFFFFFF)
 
 
-def write_png(path, img: np.ndarray, level: int = 1) -> None:
-    """Write (H, W) uint8 gray, (H, W, 3) uint8 RGB or (H, W) uint16 gray
-    as PNG (filter 0 on every row, zlib ``level``)."""
+def encode_png(img: np.ndarray, level: int = 1) -> bytes:
+    """(H, W) uint8 gray, (H, W, 3) uint8 RGB or (H, W) uint16 gray as the
+    bytes of a PNG file (filter 0 on every row, zlib ``level``)."""
     img = np.asarray(img)
     if img.dtype == np.uint8 and img.ndim == 2:
         ctype, depth, rows = 0, 8, img
@@ -185,14 +202,22 @@ def write_png(path, img: np.ndarray, level: int = 1) -> None:
     elif img.dtype == np.uint16 and img.ndim == 2:
         ctype, depth, rows = 0, 16, img.astype(">u2").view(np.uint8)
     else:
-        raise ValueError(f"write_png: {img.dtype} {img.shape}; uint8 gray or RGB, or uint16 gray")
+        raise ValueError(f"encode_png: {img.dtype} {img.shape}; uint8 gray or RGB, or uint16 gray")
     h, w = img.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    return b"".join((
+        PNG_SIGNATURE,
+        _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)),
+        _chunk(b"IDAT", zlib.compress(np.ascontiguousarray(raw).tobytes(), level)),
+        _chunk(b"IEND", b""),
+    ))
+
+
+def write_png(path, img: np.ndarray, level: int = 1) -> None:
+    """Write ``img`` to ``path`` as PNG (see :func:`encode_png`)."""
+    data = encode_png(img, level)
     with open(path, "wb") as f:
-        f.write(PNG_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(np.ascontiguousarray(raw).tobytes(), level)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(data)
 
 
 # ---------------------------------------------------------------------------

@@ -590,6 +590,7 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
         with the IMU samples since the last frame (``acc``, ``gyr`` (M, 3),
         ``imu_t`` (M,))."""
         t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
+        self._keep_image(img)
         with torch.profiler.record_function(EXTRACTION_RANGE):
             feats = self._extract(self._on_device(img, torch.float32))
         if self.state == NOT_INITIALIZED:
@@ -614,6 +615,8 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
                 self.state = OK
                 self.frames_since_kf += 1
                 self._record(frame_id, Rcw, tcw, n_inl)
+                if self.keep_frame_overlay:
+                    self._record_overlay(feats, mp_of_feat, frame_id)
                 if self._need_new_kf(n_inl):
                     self._insert_keyframe(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl)
         self._try_imu_init(t)
@@ -722,6 +725,7 @@ class StereoInertialSLAM(MonoInertialSLAM):
         the last frame."""
         t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
         cfg = self.cfg
+        self._keep_image(img_left)
         with torch.profiler.record_function(EXTRACTION_RANGE):
             pair = torch.stack([self._on_device(img_left, torch.float32),
                                 self._on_device(img_right, torch.float32)])
@@ -767,6 +771,8 @@ class StereoInertialSLAM(MonoInertialSLAM):
                 self.state = OK
                 self.frames_since_kf += 1
                 self._record(frame_id, Rcw, tcw, n_inl)
+                if self.keep_frame_overlay:
+                    self._record_overlay(feats, mp_of_feat, frame_id)
                 close_th = (cfg.bf / self.cam.fx) * cfg.th_depth
                 close = (depth > 0) & (depth < close_th)
                 tc, ntc = (int(c) for c in _pull(torch.sum((mp_of_feat >= 0) & close),
@@ -796,6 +802,10 @@ class StereoInertialSLAM(MonoInertialSLAM):
 
     def _prep_batch(self, frames, n_pad):
         return StereoSLAM._prep_batch(self, frames, n_pad)
+
+    @staticmethod
+    def _shown_image(frame):
+        return frame[0]
 
     def process_batch(self, imgs, frame_ids, ts=None, acc=None, gyr=None, imu_t=None):
         """Track a batch of (left, right) pairs at times ``ts`` (default
@@ -830,11 +840,13 @@ class StereoInertialSLAM(MonoInertialSLAM):
         # drain's copy waits only for the previous batch's tail
         self._frame_boundary()
         pos = 0
+        shown = None  # the overlay of the last tracked frame, copied at the end
         while pos < B:
             if self.state == NOT_INITIALIZED or self.imu_stage == 0:
                 # a reset mid-walk dropped the chain: the rest frame by frame
                 for j in range(pos, B):
                     self.process(imgs[j][0], imgs[j][1], ids[j], t=tss[j])
+                shown = None
                 break
             anchor_slot = self.kf_order[-1]
             t_kf = self.kf_times[-1]
@@ -875,6 +887,9 @@ class StereoInertialSLAM(MonoInertialSLAM):
                 if ok:
                     self.state = OK
                     self.cur_vel = vels[k]
+                    if self.keep_frame_overlay:
+                        shown = self._overlay_now(_frame(feats_cur, k), mp_feats[k], ids[j],
+                                                  imgs[j])
                 need = ok and self._need_new_kf(nk, tracked_close=int(tc_np[k]),
                                                 nontracked_close=int(ntc_np[k]))
                 # after a mid-dispatch keyframe the remaining inlier counts
@@ -893,6 +908,7 @@ class StereoInertialSLAM(MonoInertialSLAM):
                         k_kf = j
                         break
             pos = B if k_kf is None else k_kf + 1
+        self._show_overlay(shown)
         # leave the incremental accumulators consistent for per-frame use
         if self.kf_times:
             self.since_kf = self.imu.interval(self.kf_times[-1], tss[-1])
@@ -920,6 +936,7 @@ class FisheyeStereoInertialSLAM(StereoInertialSLAM):
         """Feed one fisheye pair at time ``t`` with the IMU samples since the
         last frame."""
         t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
+        self._keep_image(img_left)
         feats, depth, uv2 = FisheyeStereoSLAM._fisheye_frontend(self, img_left, img_right)
         return self._after_frontend(feats, frame_id, t, None, depth, xy_r=uv2)
 

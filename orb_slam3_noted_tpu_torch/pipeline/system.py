@@ -52,6 +52,7 @@ PnP draws of a relocalisation attempt (:meth:`MonoSLAM._pnp_sets`).
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -145,6 +146,17 @@ class MonoSLAM:
         self.lost_patience = max(int(2.0 * cfg.fps), 4)
         # track against the frozen map, never insert keyframes
         self.localization_only = False
+        # FrameDrawer hook (reference ``FrameDrawer::Update``): when on, a
+        # tracked frame records its keypoints and matches for
+        # ``utils.viewer.draw_frame`` (one device-to-host copy a frame, or a
+        # batch dispatch) and the image they lie on; off, nothing is copied
+        self.keep_frame_overlay = False
+        self.last_overlay = None
+        self.last_image = None
+        # the map is updated in place: a thread that runs ``process`` and
+        # one that reads the map (``node.SlamNode``, ``utils.viewer``) both
+        # hold this lock
+        self.lock = threading.Lock()
         self.reset()
 
     def reset(self):
@@ -342,6 +354,7 @@ class MonoSLAM:
     def process(self, img, frame_id: int):
         """Feed one grayscale image (H, W), values in [0, 255]."""
         self._frame_boundary()
+        self._keep_image(img)
         if self.state == NOT_INITIALIZED:
             with torch.profiler.record_function(INIT_RANGE):
                 with torch.profiler.record_function(EXTRACTION_RANGE):
@@ -552,6 +565,7 @@ class MonoSLAM:
         feats_all = None   # the batch's features on the device
         aux = None         # per-frame stereo rows (uvr, depth) or None
         attempts = 0
+        shown = None       # the overlay of the last tracked frame, copied at the end
         while pos < n_real:
             vel = self._velocity()
             if feats_all is None:
@@ -585,6 +599,9 @@ class MonoSLAM:
                 self._update_lost_state(ok)
                 self.frames_since_kf += 1
                 self._record(ids[j], Rs_np[d], ts_np[d], n, ref_pose=ref_now)
+                if ok and self.keep_frame_overlay:
+                    shown = self._overlay_now(_frame(cur_feats, d), mp_feats[d], ids[j],
+                                              imgs[i + j])
                 if ok and d >= 1:
                     Rv = Rs_np[d] @ Rs_np[d - 1].T
                     self.vel = (Rv, ts_np[d] - Rv @ ts_np[d - 1])
@@ -605,6 +622,7 @@ class MonoSLAM:
             else:
                 pos = k_kf + 1
                 attempts += 1
+        self._show_overlay(shown)
         return self.trajectory[-1]
 
     def _init_consume(self, imgs, frame_ids):
@@ -835,6 +853,8 @@ class MonoSLAM:
                 self.frames_since_kf += 1
                 return
         self._update_lost_state(True)
+        if self.keep_frame_overlay:
+            self._record_overlay(feats, mp_of_feat, frame_id)
         self.vel = se3.compose((Rcw, tcw), se3.inverse(self._last_pose()))
         self.frames_since_kf += 1
         ref_now = (
@@ -854,6 +874,41 @@ class MonoSLAM:
         if self._need_new_kf(n_inl, tracked_close=tc, nontracked_close=ntc):
             self._insert_keyframe(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
                                   uvr=uvr, depth=depth, xy_r=xy_r)
+
+    @staticmethod
+    def _shown_image(frame):
+        """The image of a batch frame that the overlay is drawn on."""
+        return frame
+
+    def _keep_image(self, img):
+        """With the overlay on, the image the next overlay is drawn on (a
+        tensor stays on its device until a viewer draws it)."""
+        if self.keep_frame_overlay:
+            self.last_image = img if isinstance(img, torch.Tensor) else np.asarray(img)
+
+    def _overlay_now(self, feats, mp_of_feat, frame_id, image=None):
+        """The FrameDrawer snapshot of a frame as it stands, its tensors not
+        copied yet: (tensors, host fields, image)."""
+        return ((feats.xy, feats.valid, mp_of_feat >= 0),
+                dict(frame_id=int(frame_id), state=self.state, n_kf=self.n_kf, n_mp=self.n_mp),
+                image)
+
+    def _show_overlay(self, snap):
+        """Copy a snapshot of :meth:`_overlay_now` to the host in one copy
+        and make it ``last_overlay`` (with its image, when it has one)."""
+        if snap is None:
+            return
+        (xy, valid, matched), fields, image = snap
+        xy, valid, matched = _pull(xy, valid, matched)
+        self.last_overlay = dict(xy=xy, valid=valid, matched=matched, **fields)
+        if image is not None:
+            self._keep_image(self._shown_image(image))
+
+    def _record_overlay(self, feats, mp_of_feat, frame_id):
+        """FrameDrawer snapshot of this frame (see ``keep_frame_overlay``):
+        keypoints ``xy``, ``valid``, ``matched`` (bound to a map point) as
+        numpy, and the state and map counts."""
+        self._show_overlay(self._overlay_now(feats, mp_of_feat, frame_id))
 
     def _record(self, frame_id, Rcw, tcw, n_inl, ref_pose=None):
         """Append a trajectory record; ``ref_pose`` = (ref_slot, Rr, tr), the
@@ -919,6 +974,10 @@ class StereoSLAM(MonoSLAM):
     def _process_one(self, frame, frame_id):
         self.process(frame[0], frame[1], frame_id)
 
+    @staticmethod
+    def _shown_image(frame):
+        return frame[0]
+
     def _init_consume(self, imgs, frame_ids):
         # stereo initialisation is single-frame (from depth)
         self._process_one(imgs[0], frame_ids[0])
@@ -954,6 +1013,7 @@ class StereoSLAM(MonoSLAM):
     def process(self, img_left, img_right, frame_id: int):
         """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
         cfg = self.cfg
+        self._keep_image(img_left)
         # one pyramid and one atlas for the stacked pair, shared by
         # extraction (K1, K2 and K3 once each) and matching (K4 on the two
         # images' atlases, views of the pair's)
@@ -1068,6 +1128,7 @@ class FisheyeStereoSLAM(StereoSLAM):
 
     def process(self, img_left, img_right, frame_id: int):
         """Feed one fisheye pair, (H, W) each, values in [0, 255]."""
+        self._keep_image(img_left)
         feats, depth, uv2 = self._fisheye_frontend(img_left, img_right)
         if self.state == NOT_INITIALIZED:
             uvr = torch.full((self.cfg.n_features,), -1.0, dtype=torch.float32,
@@ -1094,6 +1155,7 @@ class RGBDSLAM(StereoSLAM):
 
     def process(self, img, depth_img, frame_id: int):
         cfg = self.cfg
+        self._keep_image(img)
         with torch.profiler.record_function(EXTRACTION_RANGE):
             feats = self._extract(self._on_device(img, torch.float32))
         dmap = self._on_device(depth_img, torch.float32)

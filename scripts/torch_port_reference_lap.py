@@ -33,6 +33,10 @@ alone: the 4-DoF pose graph of a loop on the drifted 64-keyframe map (see
 ``--mode cli_euroc|cli_tum_rgbd|cli_tumvi``: the JAX package's CLI on the
 dataset layouts of ``chip_smoke.py``'s phase 14, written by
 ``scripts/cli_layouts.py`` (see :func:`main_cli`).
+``--mode node_stereo_inertial|node_rgbd``: the JAX package's live node
+(``node.SlamNode``) in this process, frames and IMU samples through its
+grab callbacks, then ``stop(drain=True)``: the inputs of ``chip_smoke.py``'s
+phases 15a and 15b (see :func:`main_node`).
 ``--mode fisheye_stereo``: the TUM-VI 512x512 fisheye lap (``TUM_512.yaml``'s
 two Kannala-Brandt cameras, a right camera rotated against the left, 1500
 features) through ``FisheyeStereoSLAM.process``, written to
@@ -62,6 +66,8 @@ few of them 1 ulp otherwise, which moves edge pixels of the renders)::
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode stereo_inertial
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode fisheye_stereo
     JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode fisheye_inertial
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode node_stereo_inertial
+    JAX_PLATFORMS=cpu python scripts/torch_port_reference_lap.py --mode node_rgbd
 """
 
 from __future__ import annotations
@@ -100,6 +106,8 @@ FIXTURES = {
     "cli_euroc": ("cli_euroc.json", 0),
     "cli_tum_rgbd": ("cli_tum_rgbd.json", 0),
     "cli_tumvi": ("cli_tumvi.json", 0),
+    "node_stereo_inertial": ("node_stereo_inertial.json", 80),
+    "node_rgbd": ("node_rgbd.json", 48),
 }
 # the kidnapped monocular lap: frames 0-35 of the mono lap's trajectory, three
 # blank frames, then a revisit of frames 20-59 under frame ids 2000 + index
@@ -232,6 +240,8 @@ def main():
         return main_atlas(args.out, args.mode)
     if args.mode.startswith("cli_"):
         return main_cli(args.out, args.mode)
+    if args.mode.startswith("node_"):
+        return main_node(args.out, args.mode, n)
 
     import jax
 
@@ -463,6 +473,11 @@ def record_detections() -> dict:
 # frame 7); on bench.py's lap it finds the start again by projection and
 # closes none
 WIDE_AMPLITUDE = 1.4
+# frames each arm runs, the first of bench.py's 400 (chip_smoke.py's phase
+# 10a keeps its run time down): the bench arms one excursion each way and
+# back to the start; the wide arm all 400 (cut to 224, the port's map, after
+# its earlier loop at frame 133, inserted 57 keyframes to JAX's 52)
+LOOP_ARM_FRAMES = {"loop_off": 200, "loop_on": 200, "loop_wide": 400}
 
 
 def pendulum_poses(n: int, amplitude: float = 0.7) -> list:
@@ -488,7 +503,8 @@ def pendulum_poses(n: int, amplitude: float = 0.7) -> list:
 
 def main_mono_loop(out_path: str, n: int, arms=("loop_off", "loop_on", "loop_wide")):
     """``bench.py``'s accuracy lap in both arms, and its wide form with loop
-    closing on (``loop_wide``: ``WIDE_AMPLITUDE``): ``MonoSLAM.process_batch``
+    closing on (``loop_wide``: ``WIDE_AMPLITUDE``), each arm on the first
+    ``LOOP_ARM_FRAMES`` of its poses: ``MonoSLAM.process_batch``
     in batches of 16 with ``bench.py``'s keyframe override (a keyframe at
     least every 8 tracked frames), ``flush()`` at the end; the loop-off arm
     replaces ``_maybe_close_loop`` by ``_register_reloc_kf``
@@ -516,8 +532,8 @@ def main_mono_loop(out_path: str, n: int, arms=("loop_off", "loop_on", "loop_wid
     attempt = jtr.init_attempt_batch
     loop_rec = record_detections()
 
-    def lap(amplitude):
-        poses = pendulum_poses(n, amplitude)
+    def lap(amplitude, k):
+        poses = pendulum_poses(n, amplitude)[:k]
         return poses, [room.render(R, t, cam.params, W, H).astype(np.uint8) for R, t in poses]
 
     def run(loop_on: bool, poses, frames) -> dict:
@@ -583,9 +599,10 @@ def main_mono_loop(out_path: str, n: int, arms=("loop_off", "loop_on", "loop_wid
         return arm
 
     out = {
-        "source": "JAX MonoSLAM, bench.py's 400-frame accuracy lap (bench.py:215-309): "
-                  f"process_batch in batches of {BATCH}, bench.py's keyframe override, flush() "
-                  "at the end, loop closing off (_register_reloc_kf) and on, and on with "
+        "source": "JAX MonoSLAM, bench.py's 400-frame accuracy lap (bench.py:215-309), each "
+                  "arm its first `frames`: process_batch in batches of "
+                  f"{BATCH}, bench.py's keyframe override, flush() at the end, loop closing off "
+                  "(_register_reloc_kf) and on, and on with "
                   f"{WIDE_AMPLITUDE} m excursions (loop_wide, its own poses), CPU",
         "frames": n, "width": W, "height": H, "camera": list(CAM_PARAMS), "n_features": 1200,
         "room_seed": 0, "max_map_points": 8192, "max_keyframes": 64, "batch": BATCH,
@@ -596,16 +613,17 @@ def main_mono_loop(out_path: str, n: int, arms=("loop_off", "loop_on", "loop_wid
         with open(out_path) as f:
             old = json.load(f)
         out.update({k: v for k, v in old.items() if k.startswith("loop_")})
-    poses, frames = lap(0.7)
     for arm in arms:
+        k = LOOP_ARM_FRAMES[arm]
         if arm == "loop_wide":
-            wide, wide_frames = lap(WIDE_AMPLITUDE)
+            wide, wide_frames = lap(WIDE_AMPLITUDE, k)
             out[arm] = run(True, wide, wide_frames)
-            out[arm].update(amplitude=WIDE_AMPLITUDE, frames=n,
+            out[arm].update(amplitude=WIDE_AMPLITUDE,
                             rwc_f32=b64(np.stack([R for R, _ in wide]).astype("<f4")),
                             twc_f64=b64(np.stack([t for _, t in wide]).astype("<f8")))
         else:
-            out[arm] = run(arm == "loop_on", poses, frames)
+            out[arm] = run(arm == "loop_on", *lap(0.7, k))
+        out[arm]["frames"] = k
     with open(out_path, "w") as f:
         json.dump(out, f, indent=1)
         f.write("\n")
@@ -1708,6 +1726,126 @@ def main_cli(out_path: str, name: str):
           f"decoder {rec['native_decoder']}, {wall:.1f} s", flush=True)
     with open(out_path, "w") as f:
         json.dump(rec, f, indent=1, default=float)
+
+
+def node_imu_blocks(times, acc, gyr, ts) -> list:
+    """The IMU samples of each frame's IMUS block: those after the previous
+    frame's block up to and including the frame's time (frame times are
+    sample times of the 200 Hz grid), as (acc, gyr, ts) per frame."""
+    out, start = [], 0
+    for t in times:
+        stop = int(np.searchsorted(ts, t + 1e-9, side="right"))
+        out.append((acc[start:stop], gyr[start:stop], ts[start:stop]))
+        start = stop
+    return out
+
+
+def main_node(out_path: str, mode: str, n: int):
+    """The JAX package's ``SlamNode`` in this process on the frames of
+    ``chip_smoke.py``'s phase 15: ``node_stereo_inertial`` the first ``n``
+    pairs of ``bench.py``'s stereo-inertial lap with their 200 Hz IMU
+    samples (both read from ``tests/fixtures/stereo_inertial_lap.json``),
+    ``cfg_vi``; ``node_rgbd`` the 48 left images and depth maps of the
+    stereo bench lap, its configuration (the mapper on, loop closing off),
+    ``keep_frame_overlay`` on.  Every frame and sample goes through
+    ``grab_image`` / ``grab_imu`` (images as the node's TCP decoder makes
+    them), then ``start()`` and ``stop(drain=True)``: the JAX server cannot
+    carry IMU samples over TCP (ROADMAP Queue 3).  Records each published
+    record's state and ``twc``, the keyframes, ``imu_stage``, the ATE of
+    the published centres, and per frame the overlay's matched count."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from orb_slam3_noted_tpu.io.config import SlamConfig
+    from orb_slam3_noted_tpu.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu.node import SlamNode
+    from orb_slam3_noted_tpu.utils.evaluation import ate_rmse
+    from orb_slam3_noted_tpu.utils.synthetic import BoxRoom, stereo_pair
+
+    cam = Camera(PINHOLE, CAM_PARAMS)
+    b64f = lambda x: b64(np.asarray(x, "<f8"))
+    out = {"frames": n, "width": W, "height": H, "camera": list(CAM_PARAMS)}
+    if mode == "node_stereo_inertial":
+        si = json.load(open(os.path.join(ROOT, "tests", "fixtures", FIXTURES["stereo_inertial"][0])))
+        N = si["frames"]
+        dec = lambda k, shape: np.frombuffer(base64.b64decode(si[k]), "<f8" if k != "rwc_f32"
+                                             else "<f4").reshape(shape)
+        rwc, twc = dec("rwc_f32", (N, 3, 3))[:n], dec("twc_f64", (N, 3))[:n]
+        cat = lambda k: np.concatenate([np.frombuffer(base64.b64decode(c[k]), "<f8").reshape(
+            (c["n"], 3) if k != "ts" else (c["n"],)) for c in si["imu"]])
+        acc, gyr, ts = cat("acc"), cat("gyr"), cat("ts")
+        times = [k / si["config"]["fps"] for k in range(n)]
+        blocks = node_imu_blocks(times, acc, gyr, ts)
+        room = BoxRoom(seed=0)
+        frames = [tuple(x.astype(np.uint8) for x in stereo_pair(room, R, t, CAM_PARAMS, W, H,
+                                                                 BASELINE)[:2])
+                  for R, t in zip(rwc, twc)]
+        cfg = SlamConfig(camera=cam, bf=si["bf"], **si["config"])
+        node = SlamNode(cfg, "stereo-inertial")
+        out.update(config=si["config"], bf=si["bf"], source_fixture=FIXTURES["stereo_inertial"][0],
+                   imu_per_frame=[int(len(b[2])) for b in blocks])
+        gt = np.asarray(twc, np.float64)
+    else:
+        poses, lefts, _, depths = lap_inputs(n)
+        frames = list(zip(lefts, depths))
+        times = [k / 20.0 for k in range(n)]
+        blocks = None
+        cfg = SlamConfig(
+            camera=cam, width=W, height=H, n_features=1200, n_levels=8,
+            scale_factor=1.2, bf=BASELINE * cam.fx, th_depth=45.0,
+            max_keyframes=64, max_map_points=16384,
+            local_window=5, kf_max_interval=10, enable_loop_closing=False,
+        )
+        node = SlamNode(cfg, "rgbd")
+        node.slam.keep_frame_overlay = True
+        out.update(bf=BASELINE * cam.fx, rwc_f32=b64(np.stack([R for R, _ in poses]).astype("<f4")))
+        gt = np.asarray([t for _, t in poses], np.float64)
+    published, matched = [], []
+
+    def on_pose(msg):
+        published.append(msg)
+        ov = node.slam.last_overlay
+        matched.append(None if ov is None or ov["frame_id"] != msg.get("frame_id")
+                       else int((np.asarray(ov["valid"]) & np.asarray(ov["matched"])).sum()))
+
+    node.subscribe(on_pose)
+    for k, (img, img2) in enumerate(frames):
+        if blocks is not None:
+            for a, g, tt in zip(*blocks[k]):
+                node.grab_imu(tt, a, g)
+        # as the TCP decoder hands them over: float32 gray, f32 depth
+        node.grab_image(img.astype(np.float32), times[k], img2=img2.astype(np.float32))
+    t0 = time.perf_counter()
+    node.start()
+    node.stop(drain=True)
+    wall = time.perf_counter() - t0
+    slam = node.slam
+    states = [m["state"] for m in published]
+    twc_pub = np.asarray([m.get("twc", [np.nan] * 3) for m in published], np.float64)
+    ok = np.asarray([s_ == "OK" for s_ in states])
+    out.update(
+        source=f"JAX SlamNode({'stereo-inertial' if blocks else 'rgbd'}) in process, grab "
+               "callbacks, start() and stop(drain=True), CPU; "
+               "scripts/torch_port_reference_lap.py --mode " + mode,
+        n_published=len(published), states=states, tracked=int(ok.sum()),
+        twc=twc_pub.tolist(), n_inliers=[int(m.get("n_inliers", 0)) for m in published],
+        n_kf=int(slam.n_kf), kf_inserted=int(slam.kf_inserted), n_mp=int(slam.n_mp),
+        kf_frame_ids=sorted(int(f) for f in slam.kf_frame_ids if f >= 0),
+        overlay_matched=matched, wall_s=wall)
+    if blocks is not None:
+        ate, _, _ = ate_rmse(twc_pub[ok], gt[ok], with_scale=False)
+        out.update(imu_stage=int(slam.imu_stage), ate_se3_m=float(ate))
+    else:
+        # metric RMSE of the published centres in the first camera's frame
+        Rwc0, twc0 = poses[0]
+        err = np.linalg.norm(twc_pub - (gt - twc0) @ Rwc0, axis=1)
+        out.update(rmse_m=float(np.sqrt(np.nanmean(err ** 2))))
+    with open(out_path, "w") as f:
+        json.dump(out, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: v for k, v in out.items()
+                      if k not in ("states", "twc", "n_inliers", "overlay_matched", "rwc_f32",
+                                   "imu_per_frame", "config")}))
 
 
 if __name__ == "__main__":

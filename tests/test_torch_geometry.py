@@ -76,6 +76,46 @@ def test_se3_exp_compose_inverse():
     _close(it[1], ij[1])
 
 
+def _se3_pair(batch: int):
+    rng = np.random.default_rng(11)
+    xi = (rng.normal(size=(batch, 6)) * 0.4).astype(np.float32)
+    R, t = jse3.exp(jnp.asarray(xi))
+    return (np.asarray(R), np.asarray(t)), rng
+
+
+@pytest.mark.parametrize("helper", ["identity", "apply", "to_matrix", "from_matrix", "retract"])
+def test_se3_helpers(helper):
+    """The five helpers against the JAX package's on the same float32
+    inputs (ATOL: float32 elementwise math; identity, to_matrix and
+    from_matrix are exact)."""
+    (R, t), rng = _se3_pair(8)
+    Tj, Tt = (jnp.asarray(R), jnp.asarray(t)), (torch.from_numpy(R), torch.from_numpy(t))
+    if helper == "identity":
+        for shape in [(), (4,), (2, 3)]:
+            Rj, tj = jse3.identity(jnp.float32, shape)
+            Rt, tt = tse3.identity(torch.float32, shape, device="cpu")
+            assert Rt.shape == Rj.shape and tt.shape == tj.shape and Rt.dtype == torch.float32
+            _close(Rt, Rj, atol=0)
+            _close(tt, tj, atol=0)
+    elif helper == "apply":
+        x = rng.normal(size=(8, 3)).astype(np.float32) * 3.0
+        _close(tse3.apply(Tt, torch.from_numpy(x)), jse3.apply(Tj, jnp.asarray(x)), atol=1e-5)
+    elif helper == "to_matrix":
+        Mj, Mt = jse3.to_matrix(Tj), tse3.to_matrix(Tt)
+        assert Mt.shape == (8, 4, 4)
+        _close(Mt, Mj, atol=0)
+    elif helper == "from_matrix":
+        M = np.asarray(jse3.to_matrix(Tj))
+        (Rj, tj), (Rt, tt) = jse3.from_matrix(jnp.asarray(M)), tse3.from_matrix(torch.from_numpy(M))
+        _close(Rt, Rj, atol=0)
+        _close(tt, tj, atol=0)
+    else:
+        xi = (rng.normal(size=(8, 6)) * 0.1).astype(np.float32)
+        (Rj, tj), (Rt, tt) = jse3.retract(Tj, jnp.asarray(xi)), tse3.retract(Tt, torch.from_numpy(xi))
+        _close(Rt, Rj)
+        _close(tt, tj, atol=1e-5)
+
+
 def test_solve6_block_elimination():
     rng = np.random.default_rng(2)
     J = rng.normal(size=(32, 40, 6)).astype(np.float32)

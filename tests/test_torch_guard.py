@@ -69,7 +69,7 @@ def test_port_names_neither_jax_nor_the_jax_package():
             "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
             "inertial_system.py", "fisheye_stereo.py", "cameras.py", "atlas.py",
             "inertial_atlas.py", "checkpoint.py", "cli.py", "demo.py", "yaml_compat.py",
-            "datasets.py", "images.py"} <= {
+            "datasets.py", "images.py", "node.py", "viewer.py", "native.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -86,11 +86,15 @@ def test_port_names_neither_jax_nor_the_jax_package():
 
 
 def test_port_imports_no_cv2_pil_or_matplotlib():
-    """The card's machine has none of them: every module of the port,
-    ``chip_smoke.py`` and the layout writer it shares with the reference
-    script read and write images through ``io/images.py``."""
+    """The card's machine has none of them: every module of the port (the
+    live node, the viewer that draws and encodes frames and maps with numpy
+    and ``zlib``, and ``native.py`` among them), ``chip_smoke.py`` and the
+    layout writer it shares with the reference script read and write images
+    through ``io/images.py``."""
     files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py"),
                                       os.path.join(ROOT, "scripts", "cli_layouts.py")]
+    assert {"node.py", "viewer.py", "native.py", "images.py"} <= {os.path.basename(f)
+                                                                   for f in files}
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -282,3 +286,35 @@ def test_cli_and_demo_default_to_the_cuda_device(monkeypatch, tmp_path):
         cli.main(["--seq", str(tmp_path), "--settings", settings, "--mode", "mono",
                   "--out", str(tmp_path / "t.txt"), "--device", "cpu"])
     assert seen[2:] == [torch.device("cuda"), torch.device("cpu")]
+
+
+def test_node_defaults_to_the_cuda_device(monkeypatch):
+    """``SlamNode`` and the node's ``main`` put the SLAM state on ``cuda``
+    unless a device is named: the allocation is intercepted before it
+    happens."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch import node
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.pipeline import map_state
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def empty_map(cfg, device=None):
+        seen.append(device)
+        raise Stop
+
+    monkeypatch.setattr(map_state, "empty_map", empty_map)
+    with pytest.raises(Stop):
+        node.SlamNode(SlamConfig(), "stereo")
+    with pytest.raises(Stop):
+        node.SlamNode(SlamConfig(), "stereo-inertial", device="cpu")
+    settings = os.path.join(ROOT, "tests", "fixtures", "settings_mono_pinhole.yaml")
+    for extra in ([], ["--device", "cpu"]):
+        with pytest.raises(Stop):
+            node.main(["--settings", settings, "--mode", "mono", "--port", "0", *extra])
+    assert seen == [torch.device("cuda"), torch.device("cpu"), torch.device("cuda"),
+                    torch.device("cpu")]

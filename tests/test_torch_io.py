@@ -253,3 +253,67 @@ def test_undistort_points_radtan():
     xd[:, 0] += 2 * p1 * x[:, 0] * x[:, 1] + p2 * (r2[:, 0] + 2 * x[:, 0] ** 2)
     xd[:, 1] += p1 * (r2[:, 0] + 2 * x[:, 1] ** 2) + 2 * p2 * x[:, 0] * x[:, 1]
     np.testing.assert_allclose(xd * params[:2] + params[2:], uv[c], atol=1e-2)
+
+
+def test_native_stage_timer_dump_matches_the_native_library(tmp_path):
+    """``native.StageTimer`` writes the native library's ``name mean_ms
+    max_ms count`` lines: the same names in the same order, the same counts
+    and number format, mean <= max, and durations within 20 ms of the JAX
+    package's timers run side by side (the sleeps are 5 and 2 ms)."""
+    import re
+    import time
+
+    from orb_slam3_noted_tpu import native as jnative
+    from orb_slam3_noted_tpu_torch import native as tnative
+
+    names = ["torch_io_timer_b", "torch_io_timer_a", "torch_io_timer_c"]
+    jt, tt = jnative.StageTimer(), tnative.StageTimer()
+    for k, name in enumerate(names):
+        for _ in range(k + 1):
+            jt.start(name)
+            tt.start(name)
+            time.sleep(0.005 if k % 2 == 0 else 0.002)
+            jt.stop(name)
+            tt.stop(name)
+    rows = {}
+    for tag, timer in (("jax", jt), ("port", tt)):
+        path = str(tmp_path / f"{tag}.txt")
+        timer.dump(path)
+        text = open(path).read()
+        assert text.endswith("\n")
+        lines = [ln for ln in text.splitlines() if ln.startswith("torch_io_timer_")]
+        for ln in lines:
+            assert re.fullmatch(r"\S+ \d+\.\d{3} \d+\.\d{3} \d+", ln), ln
+        rows[tag] = [ln.split() for ln in lines]
+    assert [r[0] for r in rows["port"]] == [r[0] for r in rows["jax"]] == sorted(names)
+    for (_, jm, jx, jn), (_, tm, tx, tn) in zip(rows["jax"], rows["port"]):
+        assert int(tn) == int(jn)
+        assert float(tm) <= float(tx) and float(tm) >= 1.0
+        assert abs(float(tm) - float(jm)) < 20.0
+    with pytest.raises(ValueError):
+        tnative.StageTimer().stop("torch_io_timer_never_started")
+
+
+def test_native_reader_and_prefetcher_names(tmp_path):
+    """``native.load_image_gray`` and ``PrefetchingLoader`` under the JAX
+    package's names read what its native decoder reads, exactly."""
+    from orb_slam3_noted_tpu import native as jnative
+    from orb_slam3_noted_tpu_torch import native as tnative
+    from orb_slam3_noted_tpu_torch.io.images import write_png
+
+    rng = np.random.default_rng(3)
+    paths = []
+    for i in range(5):
+        p = str(tmp_path / f"{i}.png")
+        write_png(p, rng.integers(0, 256, (24, 31), dtype=np.uint8))
+        paths.append(p)
+    np.testing.assert_array_equal(tnative.load_image_gray(paths[0]),
+                                  jnative.load_image_gray(paths[0]))
+    loader = tnative.PrefetchingLoader(paths, 31, 24, n_buffers=2, n_threads=2)
+    try:
+        for i, p in enumerate(paths):
+            np.testing.assert_array_equal(loader.get(i), jnative.load_image_gray(p))
+    finally:
+        loader.close()
+    with tnative.PrefetchingLoader(paths, 30, 24) as wrong, pytest.raises(IOError):
+        wrong.get(0)
