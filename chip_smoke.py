@@ -223,6 +223,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
    without waiting: published + dropped = 48, FINI's ``n_frames`` the
    published count, POSE times increasing, no exception in the worker,
    K1-K4 once per published frame; tracked, drops, round trip;
+16. distribution (``parallel/dist_ba.py``, ``scripts/torch_port_dist.py``),
+   each run against its one-device counterpart in this process: (a) the
+   full-capacity GBA of the JAX package's multi-device dry run (256
+   keyframes, 16,384 points, 307,200 observations) through
+   ``distributed_global_ba`` at ``DIST_GBA_ITERS``, poses within
+   ``DIST_GBA_POSE_TOL``, median point distance <= ``DIST_GBA_POINT_M``,
+   cost finite and within 1%; (b) its 256-keyframe Sim(3) pose graph (~1,700
+   edges) through ``distributed_pose_graph_sim3`` within ``DIST_PG_TOL``;
+   both on a one-rank NCCL group in this process and on two ranks sharing
+   the card over gloo with CUDA tensors, spawned once with (c) the loop
+   closer on phase 10b's full-width drifted map in that 2-rank group: its
+   sharded pose graph and sharded GBA each called once, the poses within
+   ``DIST_LOOP_PG_TOL`` of the one-device correction after the graph and
+   within ``DIST_LOOP_GBA_TOL`` of ``run_global_ba`` with the same counts
+   after the GBA, the median corrected point <= ``CORR_POINT_M`` from the
+   truth; the two ranks' results equal bit for bit.  ms a call at each
+   world size (two ranks on one card are the protocol's cost, not
+   scaling), collectives a call and the phase's seconds;
 
 after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c, 14a-c and 15a-c, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
@@ -432,7 +450,7 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+def cuda_time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     """Median of per-call times (CUDA events around each call)."""
     import torch
 
@@ -455,7 +473,7 @@ def cuda_time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
 EVENT_TIMED: list = []
 
 
-def device_time_ms(fn, match: str | None = None, reps: int = 20) -> float:
+def device_time_ms(fn, match: str | None = None, reps: int = 10) -> float:
     """Device time of one call of ``fn``: the durations of the kernels it
     launches, as ``torch.profiler`` records them on the card.  Without
     ``match``: all of them, summed over ``reps`` calls and divided by
@@ -489,7 +507,7 @@ def device_time_ms(fn, match: str | None = None, reps: int = 20) -> float:
     return t
 
 
-def event_device_time_ms(fn, reps: int = 20) -> float:
+def event_device_time_ms(fn, reps: int = 10) -> float:
     """Device time of one call of ``fn`` without the profiler: a spin kernel
     keeps the card busy while the host enqueues ``reps`` calls, and CUDA
     events recorded after the spin and after the last call bracket the
@@ -518,7 +536,7 @@ def event_device_time_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def host_time_ms(fn, reps: int = 200) -> float:
+def host_time_ms(fn, reps: int = 100) -> float:
     """Host time of one call of ``fn``: the host clock over ``reps`` calls
     that only enqueue (no synchronise inside the loop), divided by ``reps``."""
     import torch
@@ -3816,6 +3834,176 @@ def run_node_realtime(cfg, frames, dev, smi) -> tuple[dict, dict]:
     return launches, meas
 
 
+# ---------------------------------------------------------------------------
+# phase 16: distribution on one card
+
+# the GBA's LM steps (Huber, plain) and PCG iterations in every 16a run, one
+# device and sharded: the loop closer's sharded GBA
+DIST_GBA_ITERS = (6, 4, 32)
+DIST_GBA_POSE_TOL = 1e-3   # rotation entries and metres, against one device
+DIST_GBA_POINT_M = 2e-3    # median point distance from one device's
+DIST_GBA_COST_REL = 0.01
+DIST_PG_TOL = 1e-4         # the pose graph against one device's (R, t, s)
+DIST_LOOP_PG_TOL = 1e-4    # 16c after the sharded pose graph
+DIST_LOOP_GBA_TOL = 1e-3   # 16c after the sharded GBA, against run_global_ba
+DIST_REPS = 2              # calls of each job: the first one warms the card and the group
+DIST_CLOSER_KW = dict(min_inliers=20, consistency_th=0)  # as phase 10b
+
+
+def _dist():
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_port_dist
+
+    return torch_port_dist
+
+
+def _max_diff(a, b) -> float:
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def _same_bits(x, y) -> bool:
+    """Every tensor in two results of one job equal bit for bit."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return torch.equal(x, y)
+    if isinstance(x, dict):
+        return all(_same_bits(x[k], y[k]) for k in x)
+    if isinstance(x, (tuple, list)):
+        return all(_same_bits(a, b) for a, b in zip(x, y))
+    return x == y
+
+
+def run_distribution(ref_corr: dict, dev, smi) -> dict:
+    """Phase 16: the distributed paths on the card, each against its
+    one-device counterpart in this process.  16a the full-capacity GBA of
+    the JAX package's multi-device dry run (``scripts/torch_port_dist.py``:
+    256 keyframes, 16,384 points, 307,200 observations) through
+    ``distributed_global_ba``; 16b its 256-keyframe essential graph (~1,700
+    edges) through ``distributed_pose_graph_sim3``; both on a one-rank NCCL
+    group in this process, then with 16c on two ranks sharing the card over
+    gloo with CUDA tensors, spawned once: 16c the loop closer on phase 10b's
+    full-width drifted map in that group, which must take its sharded pose
+    graph and sharded GBA.  Returns the measurements."""
+    import tempfile
+
+    import torch
+
+    from orb_slam3_noted_tpu_torch.io.config import SlamConfig
+    from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
+    from orb_slam3_noted_tpu_torch.optim.gba import global_bundle_adjust, run_global_ba
+    from orb_slam3_noted_tpu_torch.optim.pose_graph import optimize_pose_graph_sim3
+    from orb_slam3_noted_tpu_torch.parallel.dist_ba import Group, make_mesh, spawn_mesh
+    from orb_slam3_noted_tpu_torch.place.pretrained import load_default_vocabulary
+
+    TD, LS = _dist(), _scaffold()
+    t_phase = time.perf_counter()
+    cam = Camera(PINHOLE, TD.PIN)
+    n1, n2, cg = DIST_GBA_ITERS
+    gba_kw = dict(n_iters=n1, n_iters_final=n2, cg_iters=cg)
+    prob = TD.capacity_gba_problem()
+    graph = TD.capacity_pose_graph(prob)
+    full = LS.FULL
+    inp = LS.drifted_map_inputs(seed=ref_corr["seed"], baseline=tuple(ref_corr["baseline"]),
+                                **full)
+    cfg = SlamConfig(camera=Camera(PINHOLE, full["cam"]), width=full["width"],
+                     height=full["height"], n_features=full["n_pts"],
+                     max_keyframes=full["max_keyframes"], max_map_points=full["max_map_points"])
+    vocab, idf = load_default_vocabulary()
+    jobs = {"gba": ("global_ba", (cam, prob), gba_kw), "pose_graph": ("pose_graph", graph, {})}
+    log(f"[dist] 16a GBA {prob.Rcw.shape[0]} keyframes, {prob.points.shape[0]} points, "
+        f"{prob.obs.valid.shape[0]} observations, {n1} + {n2} LM steps of {cg} PCG iterations; "
+        f"16b pose graph {graph[0].shape[0]} keyframes, {graph[3].i.shape[0]} edges; 16c the "
+        f"loop closer on {full['n_kf']} keyframes, {2 * full['n_pts']} points")
+
+    def timed(fn, *args, **kw):
+        ms = []
+        for _ in range(DIST_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    # one device, no process group: the references
+    single, single_ms = timed(global_bundle_adjust, cam, TD.to_device(prob, dev), **gba_kw)
+    pg_single, pg_ms = timed(optimize_pose_graph_sim3, *TD.to_device(graph, dev))
+    loop1 = TD.loop_closer(make_mesh(1, device=dev), inp, cfg, vocab, idf, **DIST_CLOSER_KW)
+    if (not loop1["closed"] or loop1["calls"] != {"pose_graph": 0, "gba": 0}
+            or not loop1["sliced_gba"]):
+        raise AssertionError(f"16c one device: {loop1['loop_edges']}, {loop1['calls']}")
+    loop1_gba, _ = run_global_ba(loop1["map"], cfg.camera, cfg, cfg.bf, n1, n2, cg)
+    # a one-rank NCCL group in this process, then two ranks over gloo
+    with tempfile.TemporaryDirectory() as tmp, Group(tmp, 0, 1, "nccl", dev) as mesh:
+        one = TD.run_jobs(mesh, jobs, reps=DIST_REPS)
+    t_spawn = time.perf_counter()
+    two = spawn_mesh(2, TD.run_jobs, {**jobs, "loop": (
+        "loop_closer", (inp, cfg, vocab, idf), DIST_CLOSER_KW)}, DIST_REPS, backend="gloo",
+        device=dev)
+    spawn_s = time.perf_counter() - t_spawn
+
+    meas = {"gba": {"one_device_ms": single_ms, "one_device_cost": float(single.cost)},
+            "pose_graph": {"one_device_ms": pg_ms}, "loop": {}}
+    runs = {"nccl_1_rank": one, "gloo_2_ranks": two[0]}
+    for tag, res in runs.items():
+        R, t, p, cost = res["gba"]["out"]
+        d = np.linalg.norm((p.double().cpu() - single.points.double().cpu()).numpy(), axis=1)
+        g = {"ms": res["gba"]["ms"], "collectives": res["gba"]["collectives"],
+             "pose_err": max(_max_diff(R, single.Rcw), _max_diff(t, single.tcw)),
+             "median_point_m": float(np.median(d)), "cost": float(cost),
+             "cost_rel": abs(float(cost) - float(single.cost)) / float(single.cost)}
+        meas["gba"][tag] = g
+        Rg, tg, sg, _ = res["pose_graph"]["out"]
+        pg = {"ms": res["pose_graph"]["ms"], "collectives": res["pose_graph"]["collectives"],
+              "err": max(_max_diff(a, b) for a, b in zip((Rg, tg, sg), pg_single[:3]))}
+        meas["pose_graph"][tag] = pg
+        if (g["pose_err"] > DIST_GBA_POSE_TOL or g["median_point_m"] > DIST_GBA_POINT_M
+                or not np.isfinite(g["cost"]) or g["cost_rel"] > DIST_GBA_COST_REL):
+            raise AssertionError(f"16a {tag}: {g}")
+        if pg["err"] > DIST_PG_TOL:
+            raise AssertionError(f"16b {tag}: {pg}")
+    if not all(_same_bits(two[0][k]["out"], two[1][k]["out"]) for k in two[0]):
+        raise AssertionError("16: the two ranks' results differ")
+    lp = two[0]["loop"]["out"]
+    mg = lp["map"]
+    err, before = LS.corrected_point_errors(mg.mp_pos.numpy(), inp)
+    loop = {"ms": two[0]["loop"]["ms"], "collectives": lp["collectives"],
+            "loop_edges": lp["loop_edges"], "calls": lp["calls"],
+            "pose_graph_err": max(_max_diff(lp["before_gba"]["R"], loop1["map"].kf_Rcw),
+                                  _max_diff(lp["before_gba"]["t"], loop1["map"].kf_tcw)),
+            "gba_err": max(_max_diff(mg.kf_Rcw, loop1_gba.kf_Rcw),
+                           _max_diff(mg.kf_tcw, loop1_gba.kf_tcw)),
+            "median_point_err_m": float(np.median(err)),
+            "median_drift_before_m": float(np.median(before))}
+    meas["loop"] = loop
+    meas["two_rank_spawn_s"] = spawn_s
+    meas["seconds"] = time.perf_counter() - t_phase
+    ms = lambda v: "/".join(f"{x:.1f}" for x in v)
+    for name, m in (("16a GBA", meas["gba"]), ("16b pose graph", meas["pose_graph"])):
+        log(f"[dist] {name}: one device {ms(m['one_device_ms'])} ms a call; one-rank NCCL "
+            f"{ms(m['nccl_1_rank']['ms'])} ms, {m['nccl_1_rank']['collectives']} collectives a "
+            f"call; two ranks sharing one card (gloo, CUDA tensors: the protocol's cost, not "
+            f"scaling) {ms(m['gloo_2_ranks']['ms'])} ms, {m['gloo_2_ranks']['collectives']} "
+            f"collectives a call; {smi}")
+    log(f"[dist] 16c loop closer, two ranks sharing one card: {ms(loop['ms'])} ms a call (the "
+        f"map built, the database filled, detection, ladder, sharded pose graph and GBA), "
+        f"{loop['collectives']} collectives; "
+        f"calls {loop['calls']}; after the pose graph {loop['pose_graph_err']:.3g} from one "
+        f"device's, after the GBA {loop['gba_err']:.3g} from run_global_ba's; median corrected "
+        f"point {loop['median_point_err_m']:.3g} m from the truth (drift before "
+        f"{loop['median_drift_before_m']:.3f} m)")
+    log(f"[dist] {json.dumps(meas, default=float)}")
+    if (not lp["closed"] or lp["loop_edges"] != [(full["n_kf"] - 1, 0)]
+            or lp["calls"] != {"pose_graph": 1, "gba": 1} or lp["sliced_gba"]):
+        raise AssertionError(f"16c: the sharded branches were not taken: {loop}")
+    if loop["pose_graph_err"] > DIST_LOOP_PG_TOL or loop["gba_err"] > DIST_LOOP_GBA_TOL:
+        raise AssertionError(f"16c: poses off the one-device correction: {loop}")
+    if loop["median_point_err_m"] > CORR_POINT_M:
+        raise AssertionError(f"16c: median point error {loop['median_point_err_m']} m")
+    return meas
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
@@ -3870,6 +4058,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     log("[kernels] kernel vs plain version on the card, lap frame 0")
+    t_kernels = time.perf_counter()
     floor = check_launch_floor(dev)
     log(f"  launch floor: an empty kernel lasts {floor:.5f} ms on the device")
     kres = check_kernels(cfg, frames[0][0], frames[0][1], dev)
@@ -3885,6 +4074,8 @@ def main() -> int:
         # each kernel is one launch: it cannot end sooner than an empty one
         r["launch_floor_ms"] = floor
         r["bound_or_launch_floor_ms"] = max(r["bound_ms"], floor)
+    log(f"[time] kernel phase: {time.perf_counter() - t_kernels:.1f} s, "
+        f"{time.perf_counter() - t_start:.1f} s since the start")
     ms = lambda v: "none" if v is None else f"{v:.4f}"
     log("  times in ms: device (the kernels' own durations, torch.profiler) / per call "
         "(CUDA events around one call); K1-K3 one image's atlas")
@@ -4017,6 +4208,12 @@ def main() -> int:
     by_lap["node_stereo_realtime"], node_meas["15c"] = lap(
         "node_stereo_realtime", run_node_realtime, cfg, [(f[0], f[1]) for f in frames], dev, smi)
     log(f"[laps] live node: {json.dumps(node_meas, default=float)}")
+    # phase 16: distribution; 16a the full-capacity GBA and 16b the
+    # 256-keyframe pose graph on a one-rank NCCL group and on two ranks
+    # sharing the card over gloo, 16c the loop closer in that 2-rank group
+    dist_meas = run_distribution(ref_corr, dev, smi)
+    log(f"[time] distribution: {dist_meas['seconds']:.1f} s, {time.perf_counter() - t_start:.1f} "
+        "s since the start")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

@@ -1,5 +1,5 @@
 """Global bundle adjustment: matrix-free Schur complement + block-Jacobi PCG
-(port of :mod:`orb_slam3_noted_tpu.optim.gba`, one device).
+(port of :mod:`orb_slam3_noted_tpu.optim.gba`).
 
 ``Optimizer::GlobalBundleAdjustemnt`` and the GBA the loop closer spawns
 (``LoopClosing::RunGlobalBundleAdjustment``).  The reduced camera system
@@ -22,9 +22,15 @@ has a right-camera pixel (``kf_xy_r``).
 
 ``SlicedGBA`` is the single-device stand-in for the reference's GBA thread:
 one LM step per frame boundary against a snapshot of the map, the deltas
-merged into the live map at the end.  The mesh-sharded variants
-(``distributed_global_ba``, ``run_global_ba_mesh``, the point-block step)
-wait for the distribution slice (ROADMAP, next steps 7).
+merged into the live map at the end.
+
+``distributed_global_ba`` shards the problem over a mesh of ranks
+(``parallel/dist_ba.py``): rank s owns the landmark block [s Mb, (s+1) Mb)
+and every observation of it, and keeps the point-sized state (Hll, its
+inverse, gl, dl) for that block only.  Pose-side sums are reduced over the
+mesh, one (K, 6) reduction a PCG iteration; the landmark update is
+gathered once a step.  ``run_global_ba_mesh`` is the loop closer's GBA
+inside a group of more than one rank.
 """
 
 from __future__ import annotations
@@ -80,14 +86,6 @@ def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, 
     return W, Hpp, gp, Hll, gl, cost
 
 
-def _schur_matvec(x, W, Hpp_d, Cinv, pose_idx, point_idx, M, oh_pose, pt_order):
-    """S @ x without materialising S or U; O(O) per call."""
-    utx = segment_sum(torch.einsum("oij,oi->oj", W, x[pose_idx]), point_idx, M, pt_order)
-    y = torch.einsum("mij,mj->mi", Cinv, utx)                                     # Hll^-1 U^T x
-    uy = oh_pose @ torch.einsum("oij,oj->oi", W, y[point_idx])                    # U y
-    return torch.einsum("kij,kj->ki", Hpp_d, x) - uy
-
-
 def _pcg(matvec, Pinv, b, n_iters: int):
     """Block-Jacobi preconditioned CG on the (K, 6) pose system."""
     def precond(r):
@@ -120,46 +118,19 @@ def _schur_rhs_coupling(W, Cinv, gl, point_idx, oh_pose):
 
 def _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
                  cg_iters: int, oh_pose=None, pt_order=None, rig2=()):
-    """One LM step; returns (Rcw, tcw, points, lam, cost).  ``oh_pose`` and
-    ``pt_order`` (the observations' pose one-hot and point order) are made
-    here unless the caller keeps them."""
-    K, M = Rcw.shape[0], points.shape[0]
-    dtype, dev = tcw.dtype, tcw.device
+    """One LM step on one device; returns (Rcw, tcw, points, lam, cost).
+    ``oh_pose`` and ``pt_order`` (the observations' pose one-hot and point
+    order) are made here unless the caller keeps them.  It is the
+    point-block step on a mesh of this process alone, whose sums are the
+    identity."""
+    from orb_slam3_noted_tpu_torch.parallel.dist_ba import Mesh
+
     if oh_pose is None:
-        oh_pose = pose_onehot(obs, K)
-    pi, li = obs.pose_idx.long(), obs.point_idx.long()
+        oh_pose = pose_onehot(obs, Rcw.shape[0])
     if pt_order is None:
-        pt_order = segment_order(li, M, obs.valid)
-    W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, points, obs, prob, active,
-                                                 use_huber, bf, oh_pose, pt_order, rig2)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hpp_d = Hpp + lam * Hpp * eye6 + (1e-8 + prob.pose_fixed.to(dtype))[:, None, None] * eye6
-    Hll_d = Hll + lam * Hll * eye3 + (1e-8 + prob.point_fixed.to(dtype))[:, None, None] * eye3
-    Cinv = inv3(Hll_d)
-
-    # block-Jacobi preconditioner: P_k = Hpp_k - sum_o W_o Cinv_m W_o^T
-    wc = torch.einsum("oij,ojk->oik", W, Cinv[li])
-    Pk = Hpp_d - (oh_pose @ torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36)).reshape(K, 6, 6)
-    Pk = 0.5 * (Pk + Pk.transpose(1, 2)) + 1e-6 * eye6
-    Pinv = torch.linalg.solve_ex(Pk, eye6.expand(K, 6, 6)).result
-
-    rhs = -gp + _schur_rhs_coupling(W, Cinv, gl, li, oh_pose)
-    dp = _pcg(lambda x: _schur_matvec(x, W, Hpp_d, Cinv, pi, li, M, oh_pose, pt_order), Pinv,
-              rhs, cg_iters)
-    # back-substitute the landmarks: dl = Hll^-1 (-gl - U^T dp)
-    utdp = segment_sum(torch.einsum("oij,oi->oj", W, dp[pi]), li, M, pt_order)
-    dl = torch.einsum("mij,mj->mi", Cinv, -gl - utdp)
-
-    R_new, t_new = se3.compose(se3.exp(dp), (Rcw, tcw))
-    R_new = so3.normalize(R_new)
-    p_new = points + dl
-    cost_new = _eval_blocks(cam, R_new, t_new, p_new, obs, prob, active, use_huber, bf,
-                            oh_pose, pt_order, rig2)[-1]
-    better = cost_new < cost_old
-    return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
-            torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
-            torch.where(better, cost_new, cost_old))
+        pt_order = segment_order(obs.point_idx.long(), points.shape[0], obs.valid)
+    return _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf,
+                                cg_iters, Mesh(1, 0, tcw.device), oh_pose, pt_order, rig2)
 
 
 def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
@@ -190,6 +161,112 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
     inlier = obs.valid & ok & (chi2 <= chi2_threshold(obs))
     cost = torch.sum(torch.where(inlier, chi2, 0.0))
     return BAResult(Rcw=Rcw, tcw=tcw, points=points, chi2=chi2, inlier=inlier, cost=cost)
+
+
+def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
+                         cg_iters: int, mesh, oh_pose, pt_order, rig2=()):
+    """One LM step of this rank's shard with the landmark table
+    block-partitioned over ``mesh``: the rank owns points [s Mb, (s+1) Mb)
+    and every observation of them (``shard_obs_by_point_block``), and its
+    Hll, Cinv, gl and dl cover that block only.  Reduced over the mesh:
+    Hpp, gp, the preconditioner's and the right-hand side's coupling
+    terms, U y in every PCG iteration, and both costs, so the accept test
+    is the same on every rank; the landmark update is gathered once.
+    ``oh_pose`` is the shard's pose one-hot, ``pt_order`` the segment order
+    of its local point ids.  Returns (Rcw, tcw, points, lam, cost)."""
+    K, M = Rcw.shape[0], points.shape[0]
+    dtype, dev = tcw.dtype, tcw.device
+    Mb = M // mesh.size
+    base = mesh.rank * Mb
+    pi = obs.pose_idx.long()
+    li = (obs.point_idx.long() - base).clamp(0, Mb - 1)  # local point ids
+    obs_l = obs._replace(point_idx=li)
+    pts_l = points[base:base + Mb]
+    prob_l = prob._replace(point_fixed=prob.point_fixed[base:base + Mb])
+    W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, pts_l, obs_l, prob_l, active,
+                                                 use_huber, bf, oh_pose, pt_order, rig2)
+    Hpp, gp, cost_old = mesh.psum(Hpp), mesh.psum(gp), mesh.psum(cost_old)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    Hpp_d = Hpp + lam * Hpp * eye6 + (1e-8 + prob.pose_fixed.to(dtype))[:, None, None] * eye6
+    Hll_d = Hll + lam * Hll * eye3 + (1e-8 + prob_l.point_fixed.to(dtype))[:, None, None] * eye3
+    Cinv = inv3(Hll_d)  # (Mb, 3, 3): the owned block only
+
+    wc = torch.einsum("oij,ojk->oik", W, Cinv[li])
+    Pk_sub = (oh_pose @ torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36)).reshape(K, 6, 6)
+    Pk = Hpp_d - mesh.psum(Pk_sub)
+    Pk = 0.5 * (Pk + Pk.transpose(1, 2)) + 1e-6 * eye6
+    Pinv = torch.linalg.solve_ex(Pk, eye6.expand(K, 6, 6)).result
+
+    rhs = -gp + mesh.psum(_schur_rhs_coupling(W, Cinv, gl, li, oh_pose))
+
+    def mv(x):
+        utx = segment_sum(torch.einsum("oij,oi->oj", W, x[pi]), li, Mb, pt_order)
+        y = torch.einsum("mij,mj->mi", Cinv, utx)
+        uy = mesh.psum(oh_pose @ torch.einsum("oij,oj->oi", W, y[li]))
+        return torch.einsum("kij,kj->ki", Hpp_d, x) - uy
+
+    dp = _pcg(mv, Pinv, rhs, cg_iters)
+    utdp = segment_sum(torch.einsum("oij,oi->oj", W, dp[pi]), li, Mb, pt_order)
+    dl_l = torch.einsum("mij,mj->mi", Cinv, -gl - utdp)
+    dl = mesh.gather_rows(dl_l)  # (M, 3), every rank's block
+
+    R_new, t_new = se3.compose(se3.exp(dp), (Rcw, tcw))
+    R_new = so3.normalize(R_new)
+    p_new = points + dl
+    cost_new = mesh.psum(_eval_blocks(cam, R_new, t_new, pts_l + dl_l, obs_l, prob_l, active,
+                                      use_huber, bf, oh_pose, pt_order, rig2)[-1])
+    better = cost_new < cost_old
+    return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
+            torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
+            torch.where(better, cost_new, cost_old))
+
+
+def distributed_global_ba(cam: cam_mod.Camera, mesh, prob: BAProblem, bf: float = 0.0,
+                          n_iters: int = 8, n_iters_final: int = 4, cg_iters: int = 32,
+                          cam2: cam_mod.Camera | None = None, Rrl: torch.Tensor | None = None,
+                          trl: torch.Tensor | None = None):
+    """Matrix-free GBA with the problem sharded over ``mesh``
+    (``parallel.dist_ba.make_mesh``), the two-phase schedule of
+    :func:`global_bundle_adjust`.  Every rank passes the whole problem, on
+    ``mesh.device``; M is padded to n Mb with fixed points, and rank s
+    takes the observations of its block (``shard_obs_by_point_block``).
+    The second camera's rows (``cam2``, ``Rrl``, ``trl``) stay on every
+    shard.  Returns (Rcw, tcw, points, cost), the same on every rank."""
+    from orb_slam3_noted_tpu_torch.parallel.dist_ba import shard_obs_by_point_block
+
+    rig2 = (cam2, Rrl, trl)
+    n = mesh.size
+    M0 = prob.points.shape[0]
+    Mb = -(-M0 // n)
+    pad = n * Mb - M0
+    dev = prob.points.device
+    points = torch.cat([prob.points, torch.zeros((pad, 3), dtype=prob.points.dtype, device=dev)])
+    prob = prob._replace(points=points, point_fixed=torch.cat(
+        [prob.point_fixed, torch.ones(pad, dtype=torch.bool, device=dev)]))
+    table = shard_obs_by_point_block(prob.obs, n, Mb)
+    cap = table.valid.shape[0] // n
+    rows = slice(mesh.rank * cap, (mesh.rank + 1) * cap)
+    obs = factors.ReprojObs(*(None if x is None else x[rows] for x in table))
+    oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
+    pt_order = segment_order(obs.point_idx.long() - mesh.rank * Mb, Mb, obs.valid)
+
+    def phase(Rcw, tcw, points, active, use_huber, n_steps):
+        lam = torch.tensor(1e-4, dtype=tcw.dtype, device=tcw.device)
+        for _ in range(n_steps):
+            Rcw, tcw, points, lam, _ = _gba_lm_step_ptblock(
+                cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters, mesh,
+                oh_pose, pt_order, rig2)
+        return Rcw, tcw, points
+
+    Rcw, tcw, points = phase(prob.Rcw, prob.tcw, prob.points, obs.valid, True, n_iters)
+    # the reclassification is row by row: no collective
+    active = gba_reclassify(cam, Rcw, tcw, points, obs, bf, *rig2)
+    Rcw, tcw, points = phase(Rcw, tcw, points, active, False, n_iters_final)
+    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, *rig2)
+    inlier = obs.valid & ok & (chi2 <= chi2_threshold(obs))
+    cost = mesh.psum(torch.sum(torch.where(inlier, chi2, 0.0)))
+    return Rcw, tcw, points[:M0], cost
 
 
 def full_map_problem(m, cfg, sample_stride: int = 1) -> BAProblem:
@@ -231,6 +308,9 @@ def gba_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf:
     ``gba_step_jit``): the slice ``SlicedGBA`` runs at a frame boundary."""
     return _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters,
                         oh_pose, pt_order, (cam2, Rrl, trl))
+
+
+gba_step_jit = gba_step  # the JAX package's name for it (jitted there)
 
 
 def gba_reclassify(cam, Rcw, tcw, points, obs, bf: float = 0.0, cam2=None, Rrl=None, trl=None):
@@ -324,3 +404,21 @@ def run_global_ba(m, cam, cfg, bf: float = 0.0, n_iters: int = 8, n_iters_final:
     m = MS.apply_ba_result(m, torch.arange(KF, device=dev), m.kf_valid, res.Rcw, res.tcw,
                            torch.arange(MP, device=dev), ~prob.point_fixed, res.points)
     return m, res.cost
+
+
+def run_global_ba_mesh(m, cam, cfg, mesh, bf: float = 0.0, n_iters: int = 6,
+                       n_iters_final: int = 4, cg_iters: int = 32):
+    """:func:`run_global_ba` sharded over ``mesh``: the whole map's problem
+    through :func:`distributed_global_ba`, written back on every rank.
+    Returns (m, cost)."""
+    from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
+    from orb_slam3_noted_tpu_torch.pipeline.tracking import _second_camera
+
+    prob = full_map_problem(m, cfg)
+    Rf, tf, pf, cost = distributed_global_ba(cam, mesh, prob, bf, n_iters, n_iters_final,
+                                             cg_iters, *_second_camera(cfg, m.mp_pos.device))
+    KF, MP = m.kf_Rcw.shape[0], m.mp_pos.shape[0]
+    dev = m.mp_pos.device
+    m = MS.apply_ba_result(m, torch.arange(KF, device=dev), m.kf_valid, Rf, tf,
+                           torch.arange(MP, device=dev), ~prob.point_fixed, pf)
+    return m, cost

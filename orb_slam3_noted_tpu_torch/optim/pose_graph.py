@@ -18,8 +18,12 @@ accept test is a ``torch.where``: nothing is read back inside the loop.
 :func:`optimize_pose_graph_4dof` (``OptimizeEssentialGraph4DoF``) moves
 each keyframe by a yaw about the gravity axis and a translation only, so a
 loop correction cannot tilt the gravity direction the IMU made
-observable; its Jacobians are central differences in float64 too.  The
-mesh-sharded graph waits for the distribution slice (ROADMAP, next steps 7).
+observable; its Jacobians are central differences in float64 too.
+
+:func:`distributed_pose_graph_sim3` splits the Sim(3) graph's edge table
+over a mesh of ranks (``parallel/dist_ba.py``): each rank evaluates its
+edges, the normal equations and every cost the LM step compares are
+summed over the mesh, and every rank solves the same system.
 """
 
 from __future__ import annotations
@@ -84,12 +88,17 @@ def optimize_pose_graph_sim3(
     n_iters: int = 12,
     lam: float = 1e-6,
     fix_scale: bool = False,
+    psum=None,
 ):
     """Damped Gauss-Newton over the Sim(3) pose graph. Returns (R, t, s, cost).
 
     ``fix_scale=True`` zeroes the log-scale part of every update: the 6-DoF
     essential graph the reference runs where scale is observable
-    (stereo/RGB-D, ``OptimizeEssentialGraph6DoF``)."""
+    (stereo/RGB-D, ``OptimizeEssentialGraph6DoF``).  ``psum``: the sum over
+    a mesh where ``edges`` is this rank's share of the table; it reduces the
+    assembled normal equations and every cost."""
+    if psum is None:
+        psum = lambda x: x
     K = R.shape[0]
     dtype, dev = t.dtype, t.device
     i, j = edges.i.long(), edges.j.long()
@@ -106,6 +115,7 @@ def optimize_pose_graph_sim3(
     # the residuals and cost at the current estimate: an accepted step's
     # candidate evaluation carries over, a rejected one keeps the old
     r, cost_old = _cost(R, t, s, edges, w)
+    cost_old = psum(cost_old)
     cost = cost_old
     for _ in range(n_iters):
         Si, Sj = (R[i], t[i], s[i]), (R[j], t[j], s[j])
@@ -121,7 +131,7 @@ def optimize_pose_graph_sim3(
              + torch.einsum("ae,be,exy->axby", Oj, Oj, Hjj)
              + torch.einsum("ae,be,exy->axby", Oi, Oj, Hij)
              + torch.einsum("ae,be,eyx->axby", Oj, Oi, Hij))
-        g = Oi @ gi + Oj @ gj
+        H, g = psum(H), psum(Oi @ gi + Oj @ gj)
         # gauge + free-vertex damping on the block diagonal
         bump = torch.where(fixed, 1e12, lam_c + 1e-8)
         H[ks, :, ks, :] += bump[:, None, None] * eye7
@@ -133,6 +143,7 @@ def optimize_pose_graph_sim3(
         d = torch.cholesky_solve(-g.reshape(K * 7, 1), L).reshape(K, 7) * free
         Rn, tn, sn = sim3.compose(sim3.exp(d), (R, t, s))
         r_new, cost_new = _cost(Rn, tn, sn, edges, w)
+        cost_new = psum(cost_new)
         better = (info == 0) & (cost_new < cost_old)
         R = torch.where(better, Rn, R)
         t = torch.where(better, tn, t)
@@ -142,6 +153,42 @@ def optimize_pose_graph_sim3(
         cost = cost_new
         cost_old = torch.where(better, cost_new, cost_old)
     return R, t, s, cost
+
+
+def distributed_pose_graph_sim3(
+    mesh,
+    R: torch.Tensor,
+    t: torch.Tensor,
+    s: torch.Tensor,
+    edges: Sim3Edges,
+    fixed: torch.Tensor,
+    n_iters: int = 12,
+    lam: float = 1e-6,
+    fix_scale: bool = False,
+):
+    """:func:`optimize_pose_graph_sim3` with the edge table split over
+    ``mesh`` (``parallel.dist_ba.make_mesh``): padded to a multiple of the
+    mesh size with identity edges of weight 0 that are not valid, rank s
+    takes the s-th contiguous slice.  Every rank passes the whole graph.
+    Returns (R, t, s, cost), the same on every rank."""
+    n = mesh.size
+    E = edges.i.shape[0]
+    pad = (-E) % n
+    if pad:
+        dev = edges.R.device
+        edges = Sim3Edges(
+            i=torch.cat([edges.i, torch.zeros(pad, dtype=edges.i.dtype, device=dev)]),
+            j=torch.cat([edges.j, torch.zeros(pad, dtype=edges.j.dtype, device=dev)]),
+            R=torch.cat([edges.R, torch.eye(3, dtype=edges.R.dtype, device=dev).expand(pad, 3, 3)]),
+            t=torch.cat([edges.t, torch.zeros((pad, 3), dtype=edges.t.dtype, device=dev)]),
+            s=torch.cat([edges.s, torch.ones(pad, dtype=edges.s.dtype, device=dev)]),
+            weight=torch.cat([edges.weight,
+                              torch.zeros(pad, dtype=edges.weight.dtype, device=dev)]),
+            valid=torch.cat([edges.valid, torch.zeros(pad, dtype=torch.bool, device=dev)]))
+    per = (E + pad) // n
+    mine = Sim3Edges(*(x[mesh.rank * per:(mesh.rank + 1) * per] for x in edges))
+    return optimize_pose_graph_sim3(R, t, s, mine, fixed, n_iters, lam, fix_scale,
+                                    psum=mesh.psum)
 
 
 # ---------------------------------------------------------------------------

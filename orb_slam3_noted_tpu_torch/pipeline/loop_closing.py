@@ -19,8 +19,15 @@ package seeds its key), where tests hand in the JAX package's draws.
 In a gravity-aligned inertial map (``imu_stage >= 1``) the correction runs
 the 4-DoF graph (yaw and translation, ``OptimizeEssentialGraph4DoF``),
 rotates the keyframes' body velocities with their corrections and runs
-FullInertialBA over the chain instead of a global BA.  The mesh-sharded
-pose graph and GBA wait for the distribution slice (ROADMAP, next steps 7).
+FullInertialBA over the chain instead of a global BA.
+
+Inside an initialised ``torch.distributed`` group of more than one rank
+(where the JAX package sees more than one device) the Sim(3) graph is
+split over the group's ranks (``distributed_pose_graph_sim3``) and the GBA
+runs at once, sharded (``run_global_ba_mesh``, 6 + 4 LM steps), in place of
+the ``SlicedGBA``.  Every rank runs the same SLAM on the same input, so the
+ranks reach each collective together; the 4-DoF graph and the inertial
+chain BA stay on one device.
 """
 
 from __future__ import annotations
@@ -32,14 +39,16 @@ from orb_slam3_noted_tpu_torch.geometry import sim3
 from orb_slam3_noted_tpu_torch.geometry import twoview as TV
 from orb_slam3_noted_tpu_torch.geometry.sim3_solver import N_HYP, Sim3Result, sim3_ransac
 from orb_slam3_noted_tpu_torch.ops import matching as M
-from orb_slam3_noted_tpu_torch.optim.gba import SlicedGBA
+from orb_slam3_noted_tpu_torch.optim.gba import SlicedGBA, run_global_ba_mesh
 from orb_slam3_noted_tpu_torch.geometry import se3
 from orb_slam3_noted_tpu_torch.optim.pose_graph import (
     SE3Edges,
     Sim3Edges,
+    distributed_pose_graph_sim3,
     optimize_pose_graph_4dof,
     optimize_pose_graph_sim3,
 )
+from orb_slam3_noted_tpu_torch.parallel.dist_ba import group_size, make_mesh
 from orb_slam3_noted_tpu_torch.optim.sim3_opt import sim3_refine
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
@@ -346,7 +355,8 @@ class LoopCloser:
         (the 4-DoF graph in an inertial map) with ``cand`` fixed, the
         corrected poses and points written back, SearchAndFuse queued on
         both loop keyframes, a ``SlicedGBA`` started (FullInertialBA over the
-        chain in an inertial map), and the last tracked pose re-anchored
+        chain in an inertial map; inside a group of ranks the graph and a
+        synchronous GBA sharded over them), and the last tracked pose re-anchored
         through ``slot``'s correction."""
         inertial_4dof = getattr(slam, "imu_stage", 0) >= 1
         m = slam.m
@@ -402,9 +412,13 @@ class LoopCloser:
                     i=ij[0].to(torch.int32), j=ij[1].to(torch.int32),
                     R=torch.cat([Rr, res.R[None]]), t=torch.cat([tr, res.t[None]]),
                     s=torch.cat([sr, res.s.reshape(1)]), weight=wf[:n_real + 1], valid=valid)
-                R_new, t_new, s_new, _ = optimize_pose_graph_sim3(
-                    R_all, t_all, s_all, edges, wf[n_real + 1:] > 0,
-                    fix_scale=_scale_fixed(slam))
+                graph = (R_all, t_all, s_all, edges, wf[n_real + 1:] > 0)
+                if group_size() > 1:
+                    R_new, t_new, s_new, _ = distributed_pose_graph_sim3(
+                        make_mesh(device=dev), *graph, fix_scale=_scale_fixed(slam))
+                else:
+                    R_new, t_new, s_new, _ = optimize_pose_graph_sim3(
+                        *graph, fix_scale=_scale_fixed(slam))
             slam.m = _apply_correction(m, R_new, t_new, s_new)
 
         if inertial_4dof and getattr(slam, "ki", None) is not None:
@@ -424,6 +438,10 @@ class LoopCloser:
             # an inertial map: FullInertialBA over the chain, not a visual GBA
             # that would drag poses off the gravity-consistent solution
             slam._chain_ba(window=None, n_iters=8)
+        elif self.enable_gba and cfg is not None and group_size() > 1:
+            # the ranks of a group run the GBA at once, sharded
+            slam.m, _ = run_global_ba_mesh(slam.m, slam.cam, cfg, make_mesh(device=dev),
+                                           bf=cfg.bf, n_iters=6, n_iters_final=4)
         elif self.enable_gba and cfg is not None:
             # the reference's GBA thread: one LM slice per frame boundary
             self.active_gba = SlicedGBA(slam.m, slam.cam, cfg, bf=cfg.bf, n_iters=6,

@@ -59,17 +59,20 @@ def _sources(*parts):
 def test_port_names_neither_jax_nor_the_jax_package():
     """Every module of the port, ``chip_smoke.py`` and the port's bench and
     profile scripts, by their import statements (the stereo matcher, the
-    mapper, the windowed BA and the two-view solver included)."""
+    mapper, the windowed BA, the two-view solver and the distributed BA
+    included, and the jobs that spawned ranks run)."""
     files = _sources("**", "*.py") + [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "scripts", n) for n in ("torch_port_bench.py", "torch_port_profile_lap.py",
-                                                   "loop_scaffold.py", "torch_port_segsum_ab.py")]
+                                                   "loop_scaffold.py", "torch_port_segsum_ab.py",
+                                                   "torch_port_dist.py")]
     assert {"stereo.py", "triangulation.py", "window_ba.py", "twoview.py", "horn.py",
             "evaluation.py", "trajectory.py", "sim3.py", "sim3_solver.py", "sim3_opt.py",
             "pose_graph.py", "ba.py", "gba.py", "loop_closing.py", "preintegration.py",
             "inertial.py", "vi_factors.py", "inertial_ba.py", "inertial_mapping.py",
             "inertial_system.py", "fisheye_stereo.py", "cameras.py", "atlas.py",
             "inertial_atlas.py", "checkpoint.py", "cli.py", "demo.py", "yaml_compat.py",
-            "datasets.py", "images.py", "node.py", "viewer.py", "native.py"} <= {
+            "datasets.py", "images.py", "node.py", "viewer.py", "native.py", "dist_ba.py",
+            "torch_port_dist.py"} <= {
                 os.path.basename(f) for f in files}
     for path in files:
         with open(path) as f:
@@ -112,16 +115,17 @@ def test_port_never_asks_for_a_gpu_or_catches_a_launch():
     """Dispatch is by the tensor's device alone: no module of the port asks
     ``is_available``, and no module under ``ops/`` (the kernel wrappers and
     their callers), ``geometry/`` or ``pipeline/`` (the two-view solver and
-    the facades that drive the kernels) holds a ``try`` that could fall back
-    from a failed build or launch to the plain version."""
+    the facades that drive the kernels), ``optim/`` or ``parallel/`` (the
+    mesh, its collectives and the launcher of its ranks) holds a ``try``
+    that could fall back from a failed build, launch or collective."""
     for path in _sources("**", "*.py"):
         with open(path) as f:
             src = f.read()
         assert "is_available" not in src, path
     paths = (_sources("ops", "*.py") + _sources("geometry", "*.py") + _sources("pipeline", "*.py")
-             + _sources("optim", "*.py"))
+             + _sources("optim", "*.py") + _sources("parallel", "*.py"))
     assert {"twoview.py", "system.py", "tracking.py", "loop_closing.py", "gba.py", "atlas.py",
-            "inertial_atlas.py"} <= {
+            "inertial_atlas.py", "dist_ba.py", "pose_graph.py"} <= {
         os.path.basename(p) for p in paths}
     for path in paths:
         with open(path) as f:

@@ -13,7 +13,8 @@ after the pose graph, the deferred fuses and the GBA are within 1e-3 m of
 the JAX package's; at zero baseline the ladder's scale is a free gauge
 (ROADMAP Queue 3), so there only the reference test's own check applies.
 The JAX package runs its single-device branches (``jax.device_count``
-reads 1 here), the ones the port has.
+reads 1 here), the ones the port takes outside a process group; the
+sharded branches of both packages are held in ``tests/test_torch_dist.py``.
 
 ``flush`` and ``_service_background`` on a 320x240 monocular lap with loop
 closing on (the lap of ``tests/test_torch_mono.py``), against the JAX run:
@@ -63,7 +64,7 @@ def _jax_float32():
 def _single_device(monkeypatch):
     """The JAX package's single-device branches (the test session has 8
     virtual CPU devices, which would select the mesh-sharded pose graph and
-    GBA)."""
+    GBA; the port takes its one-device branches outside a process group)."""
     monkeypatch.setattr(jax, "device_count", lambda *a, **k: 1)
 
 
