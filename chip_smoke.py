@@ -218,7 +218,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
    matched keypoints on the last frame >= 90% of JAX's, ``export_map_html``
    embedding ``map_snapshot``'s dict, ``save_map_png`` decoding, K1-K3 48
    and K4 0; ms of each request, of ``save_map_png`` and
-   ``export_map_html``.  (c) ``stereo`` with ``realtime`` (the backlog
+   ``export_map_html``, each frame's round trip and frames/s over them.  (c) ``stereo`` with ``realtime`` (the backlog
    dropped to the newest frame), phase 5's 48 pairs sent at 20 frames/s
    without waiting: published + dropped = 48, FINI's ``n_frames`` the
    published count, POSE times increasing, no exception in the worker,
@@ -241,8 +241,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
    truth; the two ranks' results equal bit for bit.  ms a call at each
    world size (two ranks on one card are the protocol's cost, not
    scaling), collectives a call and the phase's seconds;
+17. the batch modes of RGB-D and fisheye stereo at B = 16 (the JAX
+   package's facades inherit the rectified stereo hooks there; the port's
+   run the front ends of their ``process``): (a) phase 12's 100 pairs
+   (not rendered again) through ``FisheyeStereoSLAM.process_batch``, frame
+   0 through ``process``, loop closing off as in 12a, held to the JAX run
+   frame by frame (``fisheye_stereo_lap.json``): tracked >= JAX - 2, ATE
+   with the first pose's offset removed <= 2 x JAX + 2 mm, keyframes +-2,
+   second-camera rows in the keyframes (``kf_xy_r``) >= 90% of 12a's;
+   (b) phase 4's 48 frames with their depth maps through
+   ``RGBDSLAM.process_batch`` with the mapper, held to the JAX run frame by
+   frame (``node_rgbd.json``, as 15b): tracked >= JAX - 2, the track-time
+   poses' RMSE <= 2 x JAX + 2 mm, keyframes +-1.  Both: K1-K3 once per
+   extraction dispatch (a batch, or the initialisation frame), K4 and K1's
+   dense form never, one copy back per tracking dispatch; frames/s, batch
+   latency (first, p50, max) and host ms a tracking dispatch beside 12a's
+   and 15b's frame-by-frame figures of the same run
+   (``scripts/torch_port_profile_lap.py --mode batch_modes`` profiles one
+   dispatch against the same frames frame by frame);
 
-after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c, 14a-c and 15a-c, every kernel against its plain
+after each of the laps 4, 5, 7, 8, 9, 10a, 11a, 12a, 12b, 13a-c, 14a-c, 15a-c and 17a-b, every kernel against its plain
 version on the inputs the lap gave it, one input for each distinct shape
 (``KernelInputs``: the mono lap's batches of 16 and its last of 8 frames,
 the stereo batch lap's 2, 32 and 30 images, its 16 and 15 pairs), to the
@@ -365,6 +383,13 @@ FE_BATCH_FRAMES = 16
 # the window of the profiled run (launches a frame by stage): frames 10-13,
 # tracking only (the JAX run inserts its keyframes at frames 1 and 66 or so)
 FE_PROFILE_FRAMES = (10, 14)
+# phase 17, the batch modes of RGB-D and fisheye stereo at B = BATCH: 17a
+# over phase 12's pairs (cut to the first 64, as 14c, only if the whole run
+# nears the time limit), its second-camera rows >= FE_XYR_SHARE of 12a's;
+# 17b over phase 4's frames, held as 15b; the facade calls counted
+FE_BATCH_LAP_FRAMES = 100
+FE_XYR_SHARE = 0.9
+BATCH_LAP_CALLS = ("_batch_track", "_batch_retrack", "_host_copy", "process")
 
 # the Atlas laps (phase 13) against the JAX runs: maps created and merges
 # equal; the merge within ATLAS_MERGE_FRAMES frames of JAX's, from the same
@@ -2523,15 +2548,16 @@ def fisheye_frame0(calls: list, depth0) -> dict:
 
 class RecordFirstMatches:
     """Records the facade's first ``match_fisheye_stereo`` call (the left
-    features' xy and the result) while in place in ``pipeline.system``."""
+    features' xy and the result) while in place in ``pipeline.tracking``
+    (``fisheye_stereo_rows``)."""
 
     def __init__(self):
         self.calls = []
 
     def __enter__(self):
-        from orb_slam3_noted_tpu_torch.pipeline import system
+        from orb_slam3_noted_tpu_torch.pipeline import tracking
 
-        self.orig = system.match_fisheye_stereo
+        self.orig = tracking.match_fisheye_stereo
 
         def recording(feats_l, *args, **kw):
             out = self.orig(feats_l, *args, **kw)
@@ -2539,13 +2565,13 @@ class RecordFirstMatches:
                 self.calls.append((feats_l.xy.clone(), out))
             return out
 
-        system.match_fisheye_stereo = recording
+        tracking.match_fisheye_stereo = recording
         return self
 
     def __exit__(self, *exc):
-        from orb_slam3_noted_tpu_torch.pipeline import system
+        from orb_slam3_noted_tpu_torch.pipeline import tracking
 
-        system.match_fisheye_stereo = self.orig
+        tracking.match_fisheye_stereo = self.orig
 
 
 def fisheye_ate(est, twc, ok) -> tuple[float, float]:
@@ -2563,8 +2589,9 @@ def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
     """Per frame and per facade range (and ``rest`` for what lies outside
     them): kernel launches (``cudaLaunchKernel*`` calls), host-to-device
     copies (operations whose linked device record is a ``Memcpy HtoD``,
-    listed by the chain of operations that issued them), both placed by the
-    host time of the call, and the host time of the range itself."""
+    listed by the chain of operations that issued them) and device-to-host
+    ones (``Memcpy DtoH``: every read of a result on the host), all placed by
+    the host time of the call, and the host time of the range itself."""
     from torch.autograd import DeviceType
 
     events = prof.events()
@@ -2577,7 +2604,7 @@ def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
                 return r
         return "rest"
 
-    out = {r: {"launches": 0, "h2d_copies": 0, "h2d_from": {},
+    out = {r: {"launches": 0, "h2d_copies": 0, "d2h_copies": 0, "h2d_from": {},
                "host_ms": sum(b - a for a, b in spans.get(r, ())) / 1e3 / n_frames}
            for r in (*ranges, "rest")}
     for e in events:
@@ -2592,9 +2619,13 @@ def split_by_range(prof, ranges: tuple, n_frames: int) -> dict:
                 chain.append(up.name)
                 up = up.cpu_parent
             r["h2d_from"][" < ".join(chain)] = r["h2d_from"].get(" < ".join(chain), 0) + 1
+        if (e.device_type == DeviceType.CPU
+                and any(k.name.startswith("Memcpy DtoH") for k in e.kernels)):
+            out[where(e.time_range.start)]["d2h_copies"] += 1
     for r in out.values():
         r["launches"] /= n_frames
         r["h2d_copies"] /= n_frames
+        r["d2h_copies"] /= n_frames
         r["h2d_from"] = {k: v / n_frames for k, v in r["h2d_from"].items()}
     return out
 
@@ -2671,7 +2702,7 @@ def run_fisheye_lap(ref: dict, inputs, dev, smi) -> tuple[dict, dict]:
             "frame0_depth_rel_median": f0["depth_rel_median"], "frame0_idx_r_same": same_idx,
             "ate_origin_rmse_m": ate0, "ate_se3_m": ate_se3,
             "pos_vs_jax_max_m": float(np.abs(est - np.asarray(ref["positions"])).max()),
-            "fps": n / wall, "wall_s": wall, "card": smi}
+            "kf_xy_r_rows": kf_xy_r_rows(slam), "fps": n / wall, "wall_s": wall, "card": smi}
     log(f"[fisheye] tracked {meas['tracked']}/{n} (JAX {ref['tracked']}), keyframes "
         f"{slam.n_kf} (JAX {ref['n_kf']}), insertions {slam.kf_inserted} (JAX "
         f"{ref['kf_inserted']}), initial map {n_mp_init} (JAX {ref['n_mp_init']}), map points "
@@ -3683,15 +3714,17 @@ def run_node_rgbd(ref: dict, cfg, poses, frames, dev, smi) -> tuple[dict, dict]:
     viewer = V.LiveViewer(slam, port=0, host="127.0.0.1")
     out_dir = os.path.join(ROOT, "build", "node_viewer")
     os.makedirs(out_dir, exist_ok=True)
-    views, pub = [], []
+    views, pub, rts = [], [], []
     try:
         ck.reset_launch_counts()
         cli, th, raised = start_server(node)
         for k in range(n):
             img, _, depth = frames[k]
+            t_rt = time.perf_counter()
             N._send_msg(cli, b"IMG0", img_msg(k / NODE_CAMERA_FPS, img))
             N._send_msg(cli, b"DPT1", img2_msg(depth, "<f4"))
             kind, msg = recv_json(cli)
+            rts.append((time.perf_counter() - t_rt) * 1e3)
             if kind != b"POSE" or msg.get("frame_id") != k:
                 raise AssertionError(f"15b: frame {k}: {kind} {msg}")
             pub.append(msg)
@@ -3739,12 +3772,13 @@ def run_node_rgbd(ref: dict, cfg, poses, frames, dev, smi) -> tuple[dict, dict]:
     meas = {"frames": n, "tracked": tracked, "rmse_m": rmse, "n_kf": slam.n_kf,
             "matched_last": matched[-1], "matched_last_jax": ref["overlay_matched"][-1],
             "views": views, "export_map_html_ms": ms_html, "save_map_png_ms": ms_map,
-            "fini": fini, "card": smi}
+            "fps": n / (sum(rts) / 1e3), "latency": latency_stats(rts), "fini": fini, "card": smi}
     log(f"[node 15b] tracked {tracked}/{n} (JAX {ref['tracked']}), RMSE of the published twc "
         f"{rmse * 1e3:.2f} mm (JAX {ref['rmse_m'] * 1e3:.2f}), keyframes {slam.n_kf} (JAX "
         f"{ref['n_kf']}), matched on the last frame {matched[-1]} (JAX "
         f"{ref['overlay_matched'][-1]}); viewer {json.dumps(views)}; export_map_html "
-        f"{ms_html:.1f} ms, save_map_png {ms_map:.1f} ms; launches {launches}; {smi}")
+        f"{ms_html:.1f} ms, save_map_png {ms_map:.1f} ms; {meas['fps']:.2f} frames/s over the "
+        f"round trips, {json.dumps(meas['latency'])}; launches {launches}; {smi}")
     want = {"fast_candidates": n, "gaussian_blur7": n, "brief_sample": n, "sad_stereo": 0,
             "fast_score": 0}
     if launches != want:
@@ -4004,6 +4038,176 @@ def run_distribution(ref_corr: dict, dev, smi) -> dict:
     return meas
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the batch modes of RGB-D and fisheye stereo
+
+def drive_batch_lap(slam, frames) -> tuple[float, list]:
+    """``process`` until initialised, then ``process_batch`` in batches of
+    ``BATCH``; (wall seconds with the card synced at the end, ms of each
+    ``process_batch`` call on the host clock)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    i, calls = 0, []
+    while i < len(frames) and slam.state == "NOT_INITIALIZED":
+        slam._process_one(frames[i], i)
+        i += 1
+    while i < len(frames):
+        j = min(i + BATCH, len(frames))
+        tb = time.perf_counter()
+        slam.process_batch(frames[i:j], list(range(i, j)))
+        calls.append((time.perf_counter() - tb) * 1e3)
+        i = j
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, calls
+
+
+def batch_lap_times(calls: list) -> dict:
+    """Host ms of a lap's ``process_batch`` calls: the first (which follows
+    the initialisation), then the median and the largest of the rest."""
+    return {"batch_ms_first": calls[0], "batch_ms_p50": float(np.median(calls[1:])),
+            "batch_ms_max": float(max(calls[1:]))}
+
+
+def batch_lap_counts(tag: str, count, launches) -> dict:
+    """Dispatch and copy counts of a batch lap, held: K1-K3 once per
+    extraction dispatch (a batch or a frame-by-frame frame), K4 and K1's
+    dense form never, one bulk copy back per tracking dispatch."""
+    extraction = count.n["_batch_track"] + count.n["process"]
+    tracking = count.n["_batch_track"] + count.n["_batch_retrack"]
+    want = {"fast_candidates": extraction, "gaussian_blur7": extraction,
+            "brief_sample": extraction, "sad_stereo": 0, "fast_score": 0}
+    if launches != want:
+        raise AssertionError(f"{tag}: launch counts {launches}, expected {want}")
+    if count.n["_host_copy"] != tracking:
+        raise AssertionError(f"{tag}: {count.n['_host_copy']} copies back for {tracking} "
+                             "tracking dispatches")
+    return {"extraction_dispatches": extraction, "tracking_dispatches": tracking,
+            "copies_back_per_tracking_dispatch": count.n["_host_copy"] / tracking,
+            "calls": dict(count.n)}
+
+
+def kf_xy_r_rows(slam) -> int:
+    """Second-camera rows (a right pixel) over the map's valid keyframes."""
+    return int(((slam.m.kf_xy_r[..., 0] >= 0) & slam.m.kf_valid[:, None]).sum())
+
+
+def run_fisheye_batch_lap(ref: dict, inputs, fe: dict, dev, smi) -> tuple[dict, dict]:
+    """17a: ``FisheyeStereoSLAM.process_batch`` at B = 16 over phase 12's
+    pairs (frame 0 through ``process``), loop closing off as in 12a, held to
+    the JAX run frame by frame (``FE_*``) and to 12a's second-camera rows.
+    Returns (launch counts, measurements)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.system import FisheyeStereoSLAM
+
+    twc, pairs, _ = inputs
+    n = min(len(pairs), FE_BATCH_LAP_FRAMES)
+    cfg = fisheye_config(ref)
+    staged = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)) for a, b in pairs[:n]]
+    slam = FisheyeStereoSLAM(cfg, device=dev)
+    count = DispatchCounter(slam, BATCH_LAP_CALLS)
+    ck.reset_launch_counts()
+    wall, calls = drive_batch_lap(slam, staged)
+    launches = ck.launch_counts()
+    est = slam.positions()
+    states = [r.state for r in slam.trajectory]
+    if len(states) != n or not np.all(np.isfinite(est)):
+        raise AssertionError(f"17a: {len(states)} records for {n} frames, or not finite")
+    ok = np.asarray([s == "OK" for s in states])
+    ate0, ate_se3 = fisheye_ate(est, twc[:n], ok)
+    # the JAX run over the same frames
+    ref_ok = np.asarray([s == "OK" for s in ref["states"][:n]])
+    ref_ate0 = fisheye_ate(np.asarray(ref["positions"])[:n], twc[:n], ref_ok)[0]
+    rows = kf_xy_r_rows(slam)
+    meas = {"frames": n, "tracked": int(ok.sum()), "tracked_jax": int(ref_ok.sum()),
+            "n_kf": slam.n_kf, "n_kf_jax": ref["n_kf"], "kf_inserted": slam.kf_inserted,
+            "n_mp": slam.n_mp, "ate_origin_rmse_m": ate0, "ate_origin_rmse_m_jax": ref_ate0,
+            "ate_se3_m": ate_se3, "kf_xy_r_rows": rows, "kf_xy_r_rows_12a": fe["kf_xy_r_rows"],
+            "fps": n / wall, "wall_s": wall, "fps_12a": fe["fps"],
+            **batch_lap_times(calls), **batch_lap_counts("17a", count, launches), "card": smi}
+    meas["host_ms_per_tracking_dispatch"] = sum(calls) / meas["tracking_dispatches"]
+    log(f"[fisheye batch] tracked {meas['tracked']}/{n} (JAX {meas['tracked_jax']}), keyframes "
+        f"{slam.n_kf} (JAX {ref['n_kf']}), ATE with the first pose's offset removed "
+        f"{ate0 * 1e3:.2f} mm (JAX frame by frame {ref_ate0 * 1e3:.2f}), second-camera rows "
+        f"{rows} (12a {fe['kf_xy_r_rows']}); {meas['fps']:.2f} frames/s (12a frame by frame "
+        f"{fe['fps']:.2f}), batch ms first {calls[0]:.1f}, p50 {meas['batch_ms_p50']:.1f}, max "
+        f"{meas['batch_ms_max']:.1f}, host ms a tracking dispatch "
+        f"{meas['host_ms_per_tracking_dispatch']:.1f} (12a a frame {1e3 / fe['fps']:.1f}); "
+        f"calls {meas['calls']}; launches {launches}; {smi}")
+    if meas["tracked"] < meas["tracked_jax"] - FE_TRACKED_MARGIN:
+        raise AssertionError(f"17a: tracked {meas['tracked']}, JAX {meas['tracked_jax']}")
+    if ate0 > 2.0 * ref_ate0 + 0.002:
+        raise AssertionError(f"17a: ATE {ate0:.5f} m > 2 x {ref_ate0:.5f} + 2 mm")
+    if abs(slam.n_kf - ref["n_kf"]) > FE_KF_MARGIN:
+        raise AssertionError(f"17a: {slam.n_kf} keyframes, JAX {ref['n_kf']}")
+    if rows < FE_XYR_SHARE * fe["kf_xy_r_rows"]:
+        raise AssertionError(f"17a: {rows} second-camera rows, 12a {fe['kf_xy_r_rows']}")
+    return launches, meas
+
+
+def track_time_rmse(slam, poses) -> float:
+    """Metric RMSE of the camera centres of the trajectory records, the
+    poses as tracked (as the node publishes them, 15b), against the ground
+    truth in the first camera's frame."""
+    twc = np.asarray([-np.asarray(r.Rcw, np.float64).T @ np.asarray(r.tcw, np.float64)
+                      for r in slam.trajectory])
+    gt = np.asarray([t for _, t in poses])
+    Rwc0, twc0 = poses[0]
+    err = np.linalg.norm(twc - (gt - twc0) @ Rwc0, axis=1)
+    return float(np.sqrt((err ** 2).mean()))
+
+
+def run_rgbd_batch_lap(ref: dict, cfg, poses, frames, node: dict, dev, smi) -> tuple[dict, dict]:
+    """17b: ``RGBDSLAM.process_batch`` at B = 16 with the mapper over phase
+    4's 48 frames and depth maps (frame 0 through ``process``), held to the
+    JAX run frame by frame (``node_rgbd.json``, as 15b).  Returns (launch
+    counts, measurements)."""
+    import torch
+
+    from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
+    from orb_slam3_noted_tpu_torch.pipeline.system import RGBDSLAM
+
+    n = ref["frames"]
+    staged = [(torch.from_numpy(img).to(dev), torch.from_numpy(depth).to(dev))
+              for img, _, depth in frames[:n]]
+    slam = RGBDSLAM(cfg, device=dev)
+    count = DispatchCounter(slam, BATCH_LAP_CALLS)
+    ck.reset_launch_counts()
+    wall, calls = drive_batch_lap(slam, staged)
+    launches = ck.launch_counts()
+    states = [r.state for r in slam.trajectory]
+    if len(states) != n:
+        raise AssertionError(f"17b: {len(states)} records for {n} frames")
+    rmse = track_time_rmse(slam, poses[:n])
+    if not np.isfinite(rmse):
+        raise AssertionError("17b: poses not finite")
+    tracked = sum(s == "OK" for s in states)
+    meas = {"frames": n, "tracked": tracked, "rmse_m": rmse, "n_kf": slam.n_kf,
+            "kf_inserted": slam.kf_inserted, "n_mp": slam.n_mp,
+            "rmse_final_poses_m": lap_errors(slam, poses[:n])[1],
+            "fps": n / wall, "wall_s": wall, "fps_15b": node["fps"],
+            **batch_lap_times(calls), **batch_lap_counts("17b", count, launches), "card": smi}
+    meas["host_ms_per_tracking_dispatch"] = sum(calls) / meas["tracking_dispatches"]
+    log(f"[rgbd batch] tracked {tracked}/{n} (JAX {ref['tracked']}), RMSE of the track-time twc "
+        f"{rmse * 1e3:.2f} mm (JAX frame by frame {ref['rmse_m'] * 1e3:.2f}; of the final poses "
+        f"{meas['rmse_final_poses_m'] * 1e3:.2f}), keyframes {slam.n_kf} (JAX {ref['n_kf']}); "
+        f"{meas['fps']:.2f} frames/s (15b over TCP frame by frame {node['fps']:.2f}), batch ms "
+        f"first {calls[0]:.1f}, p50 {meas['batch_ms_p50']:.1f}, max {meas['batch_ms_max']:.1f}, "
+        f"host ms a tracking dispatch {meas['host_ms_per_tracking_dispatch']:.1f} (15b's round "
+        f"trip p50 {node['latency']['p50_ms']:.1f}); calls {meas['calls']}; launches {launches}; "
+        f"{smi}")
+    if tracked < ref["tracked"] - NODE_TRACKED_MARGIN:
+        raise AssertionError(f"17b: tracked {tracked} < {ref['tracked']} - {NODE_TRACKED_MARGIN}")
+    if rmse > RMSE_FACTOR * ref["rmse_m"] + RMSE_SLACK_M:
+        raise AssertionError(f"17b: RMSE {rmse:.5f} m > 2 x {ref['rmse_m']:.5f} + 2 mm")
+    if abs(slam.n_kf - ref["n_kf"]) > NODE_RGBD_KF_MARGIN:
+        raise AssertionError(f"17b: {slam.n_kf} keyframes, JAX {ref['n_kf']}")
+    return launches, meas
+
+
 def load_fixture(path: str, n_frames: int = N_FRAMES) -> dict:
     with open(path) as f:
         ref = json.load(f)
@@ -4214,6 +4418,15 @@ def main() -> int:
     dist_meas = run_distribution(ref_corr, dev, smi)
     log(f"[time] distribution: {dist_meas['seconds']:.1f} s, {time.perf_counter() - t_start:.1f} "
         "s since the start")
+    # phase 17: the batch modes of RGB-D and fisheye stereo at B = 16; 17a
+    # phase 12's pairs, 17b phase 4's frames and depth maps
+    batch_meas = {}
+    by_lap["fisheye_batch_lap"], batch_meas["17a"] = lap(
+        "fisheye_batch_lap", run_fisheye_batch_lap, ref_fe, fe_inputs, fe, dev, smi)
+    by_lap["rgbd_batch_lap"], batch_meas["17b"] = lap(
+        "rgbd_batch_lap", run_rgbd_batch_lap, ref_node_rgbd, cfg, poses, frames,
+        node_meas["15b"], dev, smi)
+    log(f"[laps] batch modes: {json.dumps(batch_meas, default=float)}")
     for name in COMPARE:
         errs = [e[name] for e in lap_err.values() if name in e]
         kres[name]["max_abs_err_laps"] = max(errs)

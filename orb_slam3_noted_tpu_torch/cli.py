@@ -22,8 +22,9 @@ does what its flags document:
 
 - an unreadable rectification block raises (the JAX CLI drops it and runs
   unrectified);
-- ``fisheye-stereo`` runs frame by frame at any ``--batch`` (the JAX CLI
-  sends ``--batch > 1`` down the rectified batch path);
+- ``fisheye-stereo --batch > 1`` goes to ``process_batch`` as in the JAX CLI,
+  whose facade then runs the rectified batch hooks on the fisheye pairs;
+  this one's runs the lapping-area matcher and keeps the second-camera rows;
 - ``--eval`` over several ``--seq`` holds each frame to its own sequence's
   ground truth (the JAX CLI uses the last sequence's for every frame).
 """
@@ -94,10 +95,10 @@ def build_system(cfg, mode, atlas=False, device=None):
 
 
 def frame_batch(mode: str, batch: int, atlas: bool) -> int:
-    """Frames per dispatch: ``batch``, but 1 for the facades that track one
-    frame at a time (mono-inertial, RGB-D, fisheye stereo and the Atlas)."""
+    """Frames per dispatch: ``batch``, but 1 where the JAX CLI forces one
+    frame at a time (mono-inertial, RGB-D and the Atlas)."""
     batch = max(batch, 1)
-    if mode in ("mono-inertial", "rgbd", "fisheye-stereo") or atlas:
+    if mode in ("mono-inertial", "rgbd") or atlas:
         return 1
     return batch
 
@@ -153,7 +154,8 @@ def main(argv=None):
     p.add_argument("--format", default="tum", choices=["tum", "euroc", "kitti"])
     p.add_argument("--max-frames", type=int, default=0)
     p.add_argument("--batch", type=int, default=1,
-                   help="frames per dispatch (throughput mode; mono/stereo/stereo-inertial)")
+                   help="frames per dispatch (throughput mode; mono, stereo, fisheye-stereo "
+                        "and the stereo-inertial modes)")
     p.add_argument("--eval", action="store_true",
                    help="evaluate ATE against the sequence ground truth")
     p.add_argument("--checkpoint-out", default=None)

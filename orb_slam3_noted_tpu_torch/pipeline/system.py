@@ -9,17 +9,20 @@ optimisation.  Stereo and RGB-D: single-frame initialisation from depth,
 then the same tracking with stereo rows.  Fisheye stereo (the TUM-VI
 configuration): a Kannala-Brandt pair that is not rectified, matched in its
 lapping areas and triangulated with the known extrinsic, the right pixel a
-second-camera row carrying ``Tlr`` (frame by frame only: the reference's
-batch path for it is at fault, ROADMAP Queue 3).  All three share the OK /
+second-camera row carrying ``Tlr``.  All of them share the OK /
 RECENTLY_LOST / LOST state machine, the relative-pose trajectory records,
 and at every keyframe decision the synchronous mapper
 (:func:`..tracking.insert_keyframe_step`) with slot recycling and map-point
 compaction.  ``set_localization_mode(True)`` freezes the map.
 
-``process`` takes one frame; ``process_batch`` (mono and stereo) takes a
-batch: extraction once for all its frames, tracking frame after frame on
+``process`` takes one frame; ``process_batch`` takes a batch (images,
+rectified or fisheye (left, right) pairs, or RGB-D (image, depth map)
+pairs): extraction once for all its frames, tracking frame after frame on
 the device, one device-to-host copy of everything the host walks per
-dispatch, and the keyframe policy evaluated per frame.
+dispatch, and the keyframe policy evaluated per frame.  The JAX package's
+fisheye and RGB-D facades inherit the rectified stereo batch hooks (SAD on
+unrectified images and on depth maps, no second-camera rows); the port
+runs their documented front ends in batch mode too.
 
 A frame that tracks too few points tries relocalisation
 (``Tracking::Relocalization``): BoW candidates from the keyframe database
@@ -35,7 +38,7 @@ With ``cfg.enable_loop_closing`` each keyframe the mapper inserts is queued
 for loop detection (:class:`..loop_closing.LoopCloser`, built at the first
 keyframe on the shipped 32k-word vocabulary, whose database relocalisation
 then queries); the queue drains at the next frame boundary of ``process`` or
-``process_batch`` (mono and stereo) with one device-to-host copy, and a
+``process_batch`` with one device-to-host copy, and a
 correction's deferred fuses and GBA steps run one slice per frame boundary
 (``_service_background``).  ``flush()`` drains everything; stereo and RGB-D
 frame by frame leave their detections queued until then, as the JAX package
@@ -65,7 +68,6 @@ from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
 from orb_slam3_noted_tpu_torch.ops import image as I
 from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import orb as O
-from orb_slam3_noted_tpu_torch.ops.fisheye_stereo import match_fisheye_stereo
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.optim import pnp as PNP
 from orb_slam3_noted_tpu_torch.pipeline import loop_closing as LC
@@ -514,8 +516,10 @@ class MonoSLAM:
 
     @staticmethod
     def _kf_extras(aux, d):
-        """(uvr, depth) rows of the keyframe frame at dispatch index d."""
-        return (None, None) if aux is None else (aux[0][d], aux[1][d])
+        """The rows of the keyframe frame at dispatch index d, in
+        ``_insert_keyframe``'s order after ``n_inl``: (uvr, depth), and a
+        fisheye rig's xy_r; none for mono."""
+        return () if aux is None else tuple(x[d] for x in aux)
 
     def _close_counts(self, mp_feats, aux):
         """(tracked_close, nontracked_close) per frame on the device, or None
@@ -563,7 +567,7 @@ class MonoSLAM:
         dev = self.device
         pos = 0            # frames committed so far
         feats_all = None   # the batch's features on the device
-        aux = None         # per-frame stereo rows (uvr, depth) or None
+        aux = None         # per-frame stereo rows (uvr, depth[, uv2]) or None
         attempts = 0
         shown = None       # the overlay of the last tracked frame, copied at the end
         while pos < n_real:
@@ -611,9 +615,8 @@ class MonoSLAM:
                     nontracked_close=int(cc_np[1][d]) if cc_np is not None else None,
                 )
                 if need:
-                    uvr_k, depth_k = self._kf_extras(cur_aux, d)
                     self._insert_keyframe(_frame(cur_feats, d), ids[j], Rs_np[d], ts_np[d],
-                                          mp_feats[d], n, uvr=uvr_k, depth=depth_k)
+                                          mp_feats[d], n, *self._kf_extras(cur_aux, d))
                     if cfg.retrack_after_kf and attempts < 3 and j + 1 < n_real:
                         k_kf = j
                         break
@@ -1092,38 +1095,46 @@ class FisheyeStereoSLAM(StereoSLAM):
         self._init_rig()
 
     def _init_rig(self):
-        """The second camera and its pose in the left frame, on the device."""
+        """The second camera's pose in the left frame, on the device (the
+        camera itself is ``cfg.camera2``)."""
         if self.cfg.camera2 is None:
             raise ValueError("fisheye stereo needs cfg.camera2")
-        self.cam2 = self.cfg.camera2
         self.Rlr, self.tlr = (torch.from_numpy(x).to(self.device)
                               for x in T.rig_extrinsic(self.cfg))
 
-    def process_batch(self, imgs, frame_ids):
-        raise NotImplementedError(
-            "fisheye batch mode is not ported: the reference's FisheyeStereoSLAM inherits the "
-            "rectified stereo batch hooks, which run SAD matching on unrectified fisheye images "
-            "and drop the second-camera rows (ROADMAP.md, Queue 3)"
+    # batch-mode hooks: the pairs as StereoSLAM lays them out, (2B, H, W);
+    # the lapping-area matcher over the B pairs and the second-camera rows
+    # through the scan and into each keyframe (the reference's facade
+    # inherits the rectified hooks: SAD on unrectified images, no right rows)
+    def _batch_track(self, prep, vel, cm):
+        Rl, tl = self._last_pose()
+        feats, depth, uv2 = T.fisheye_frontend_batch(prep, self.cfg, self.Rlr, self.tlr)
+        self.m, Rs, ts, n_inls, _, mp_feats = T.track_batch_feats(
+            self.m, feats, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg,
+            bf=self.cfg.bf, count_mask=cm, uv2_all=uv2,
         )
+        # no rectified u_right row, as in ``process``
+        return Rs, ts, n_inls, feats, mp_feats, (torch.full_like(depth, -1.0), depth, uv2)
+
+    def _batch_retrack(self, rolled, aux_rolled, vel, cm):
+        Rl, tl = self._last_pose()
+        self.m, Rs, ts, n_inls, _, mp_feats = T.track_batch_feats(
+            self.m, rolled, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg,
+            bf=self.cfg.bf, count_mask=cm, uv2_all=aux_rolled[2],
+        )
+        return Rs, ts, n_inls, mp_feats
 
     def _fisheye_frontend(self, img_left, img_right):
         """Both images as one atlas batch (K1, K2 and K3 once each), then the
         lapping-area match.  Returns (left features, depth (NF,) in the left
         camera frame or -1, uv2 (NF, 2) the matched right pixel or -1)."""
-        cfg = self.cfg
         with torch.profiler.record_function(EXTRACTION_RANGE):
             pair = torch.stack([self._on_device(img_left, torch.float32),
                                 self._on_device(img_right, torch.float32)])
             both = O.extract_from_atlas(self._pyramid_atlas(pair)[1], **self._orb_args())
             feats, feats_r = (_frame(both, i) for i in range(2))
         with torch.profiler.record_function(STEREO_RANGE):
-            sm = match_fisheye_stereo(
-                feats, feats_r, self.cam, self.cam2, self.Rlr, self.tlr,
-                lap_l=tuple(cfg.lapping_l), lap_r=tuple(cfg.lapping_r),
-                level_sigma2=cfg.level_sigma2,
-            )
-            depth = torch.where(sm.valid, sm.depth, -1.0)
-            uv2 = torch.where(sm.valid[:, None], feats_r.xy[sm.idx_r.clamp(min=0).long()], -1.0)
+            depth, uv2 = T.fisheye_stereo_rows(feats, feats_r, self.cfg, self.Rlr, self.tlr)
         return feats, depth, uv2
 
     def process(self, img_left, img_right, frame_id: int):
@@ -1143,45 +1154,40 @@ class RGBDSLAM(StereoSLAM):
     """RGB-D SLAM: gray image + registered depth map in, metric map out.
 
     Depth becomes a virtual right-image coordinate per feature,
-    ``u_r = u - bf / depth`` (``Frame::ComputeStereoFromRGBD``), and the
-    stereo machinery does the rest.
+    ``u_r = u - bf / depth`` (``Frame::ComputeStereoFromRGBD``,
+    :func:`..tracking.rgbd_depth_rows`), and the stereo machinery does the
+    rest.  ``process_batch`` takes (image, depth map) pairs.
     """
 
-    def process_batch(self, imgs, frame_ids):
-        raise NotImplementedError(
-            "RGB-D batch mode is not ported: the reference's RGBDSLAM inherits the stereo "
-            "batch hooks, which would read the depth map as a right image (ROADMAP.md, Queue 3)"
+    # batch-mode hooks: ``process_batch`` takes (image, depth map) pairs;
+    # one extraction over the B images (no K4), the depth rows from the B
+    # maps (the reference's facade inherits the stereo hooks, which read the
+    # depth map as a right image); initialisation stays single-frame
+    def _prep_batch(self, frames, n_pad):
+        """((B, H, W) uint8, (B, H, W) float32) on the device, one copy each."""
+        frames = list(frames) + [frames[-1]] * n_pad
+        if isinstance(frames[0][0], torch.Tensor):
+            return (torch.stack([f[0] for f in frames]).to(self.device, torch.uint8),
+                    torch.stack([f[1] for f in frames]).to(self.device, torch.float32))
+        return tuple(torch.from_numpy(np.stack([np.asarray(f[k]).astype(dt) for f in frames])
+                                      ).to(self.device)
+                     for k, dt in ((0, np.uint8), (1, np.float32)))
+
+    def _batch_track(self, prep, vel, cm):
+        Rl, tl = self._last_pose()
+        feats, uvr, depth = T.rgbd_frontend_batch(*prep, self.cfg)
+        self.m, Rs, ts, n_inls, _, mp_feats = T.track_batch_feats(
+            self.m, feats, self.last_kf_slot, Rl, tl, vel, self.cam, self.cfg,
+            bf=self.cfg.bf, count_mask=cm, uvr_all=uvr,
         )
+        return Rs, ts, n_inls, feats, mp_feats, (uvr, depth)
 
     def process(self, img, depth_img, frame_id: int):
-        cfg = self.cfg
         self._keep_image(img)
         with torch.profiler.record_function(EXTRACTION_RANGE):
             feats = self._extract(self._on_device(img, torch.float32))
-        dmap = self._on_device(depth_img, torch.float32)
-        H, W = dmap.shape
-        # bilinear depth at sub-pixel keypoints, nearest when any neighbour
-        # is invalid (depth edges)
-        x = torch.clamp(feats.xy[:, 0], 0.0, W - 1.001)
-        y = torch.clamp(feats.xy[:, 1], 0.0, H - 1.001)
-        x0 = torch.floor(x).long()
-        y0 = torch.floor(y).long()
-        fx_ = x - x0
-        fy_ = y - y0
-        d00 = dmap[y0, x0]
-        d01 = dmap[y0, x0 + 1]
-        d10 = dmap[y0 + 1, x0]
-        d11 = dmap[y0 + 1, x0 + 1]
-        all_ok = (d00 > 0) & (d01 > 0) & (d10 > 0) & (d11 > 0)
-        d_bil = (
-            d00 * (1 - fx_) * (1 - fy_) + d01 * fx_ * (1 - fy_)
-            + d10 * (1 - fx_) * fy_ + d11 * fx_ * fy_
-        )
-        d_near = dmap[torch.round(y).long(), torch.round(x).long()]
-        d = torch.where(all_ok, d_bil, d_near)
-        valid_d = feats.valid & (d > 0)
-        depth = torch.where(valid_d, d, -1.0)
-        uvr = torch.where(valid_d, feats.xy[:, 0] - cfg.bf / torch.clamp(d, min=1e-6), -1.0)
+        depth, uvr = T.rgbd_depth_rows(feats, self._on_device(depth_img, torch.float32),
+                                       self.cfg.bf)
 
         if self.state == NOT_INITIALIZED:
             self._stereo_initialize(feats, frame_id, uvr, depth)

@@ -12,9 +12,11 @@ tracking, local BA and the keyframe's ``kf_xy_r`` (:func:`_second_camera`).
 Monocular initialisation (:func:`init_attempt_batch`): one reference frame
 against a batch of candidate frames, batched Hamming matching and two-view
 RANSAC (:mod:`..geometry.twoview`).  Batch (throughput) mode
-(:func:`track_batch`, :func:`stereo_track_batch`): extraction once for the
-whole batch (the stereo pairs as one batch of 2B images, then
-:func:`..ops.stereo.match_stereo` over the B pairs), then the frames one
+(:func:`track_batch`, :func:`stereo_track_batch`, and the front ends
+:func:`fisheye_frontend_batch` and :func:`rgbd_frontend_batch`): extraction
+once for the whole batch (the stereo pairs as one batch of 2B images, then
+:func:`..ops.stereo.match_stereo` or the fisheye lapping-area matcher over
+the B pairs; RGB-D frames read their depth maps), then the frames one
 after another with the constant-velocity model carried on the device
 (:func:`track_batch_feats`, the ``lax.scan`` of the JAX package as a
 Python loop with no host read of its own).
@@ -45,6 +47,7 @@ from orb_slam3_noted_tpu_torch.ops import matching as M
 from orb_slam3_noted_tpu_torch.ops import image as image_ops
 from orb_slam3_noted_tpu_torch.ops import orb as O
 from orb_slam3_noted_tpu_torch.ops.fast import topk_stable
+from orb_slam3_noted_tpu_torch.ops.fisheye_stereo import match_fisheye_stereo
 from orb_slam3_noted_tpu_torch.ops.stereo import match_stereo
 from orb_slam3_noted_tpu_torch.optim.pose_opt import PoseObs, pose_optimization
 from orb_slam3_noted_tpu_torch.optim.window_ba import WindowObs, window_bundle_adjust
@@ -727,7 +730,7 @@ def init_attempt_batch(ref: O.FrameFeatures, feats_all: O.FrameFeatures, cam: ca
 # ---------------------------------------------------------------------------
 
 def track_batch_feats(m, feats_all, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf=0.0,
-                      count_mask=None, uvr_all=None):
+                      count_mask=None, uvr_all=None, uv2_all=None):
     """Track the B already-extracted frames of ``feats_all`` one after
     another against the same map (the JAX package's ``lax.scan``; also the
     re-track after a keyframe inserted mid-batch): each frame's prediction
@@ -736,8 +739,10 @@ def track_batch_feats(m, feats_all, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf
     velocity (``torch.where``; nothing is read back here beyond what
     :func:`track_frame` reads).  ``count_mask`` (B,) keeps padding and
     already-committed frames out of the visible/found counters; ``uvr_all``
-    (B, NF) gives stereo frames their 3-row observations.  Returns (m, Rcw
-    (B, 3, 3), tcw (B, 3), n_inl (B,), feats_all, mp_of_feat (B, NF))."""
+    (B, NF) gives stereo frames their 3-row observations, ``uv2_all`` (B, NF,
+    2) a fisheye rig's matched right pixels (-1 for none; the second camera
+    comes from ``cfg``).  Returns (m, Rcw (B, 3, 3), tcw (B, 3), n_inl (B,),
+    feats_all, mp_of_feat (B, NF))."""
     mp_mask, _ = MS.local_map_mask(m, last_kf_slot, n_neighbors=cfg.local_window)
     B = feats_all.xy.shape[0]
     if count_mask is None:
@@ -752,6 +757,7 @@ def track_batch_feats(m, feats_all, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf
         Rcw, tcw, n_inl, mp_of_feat, vis, found = track_frame(
             m, O.FrameFeatures(*(f[b] for f in feats_all)), Rp, tp, mp_mask, cam, cfg,
             feat_uvr=None if uvr_all is None else uvr_all[b], bf=bf,
+            feat_uv2=None if uv2_all is None else uv2_all[b],
         )
         ok = n_inl >= cfg.min_tracked_points
         # the velocity moves only when tracking succeeded
@@ -801,6 +807,79 @@ def stereo_frontend_batch(imgs_u8, cam, cfg, bf):
     )
     return (featsL, torch.where(sm.valid, sm.u_right, -1.0),
             torch.where(sm.valid, sm.depth, -1.0))
+
+
+def fisheye_stereo_rows(feats_l, feats_r, cfg: SlamConfig, Rlr, tlr):
+    """A fisheye rig's stereo rows for one pair ((NF, ...) features) or a
+    batch of pairs ((B, NF, ...)): the lapping-area match
+    (:func:`..ops.fisheye_stereo.match_fisheye_stereo`; no kernel, K4 is for
+    rectified pairs only) with the rig of ``cfg`` (``Rlr``, ``tlr``: the
+    right camera's pose in the left frame, :func:`rig_extrinsic`).  Returns
+    (depth (..., NF) in the left camera frame or -1, uv2 (..., NF, 2) the
+    matched right pixel or -1)."""
+    sm = match_fisheye_stereo(
+        feats_l, feats_r, cfg.camera, cfg.camera2, Rlr, tlr, lap_l=tuple(cfg.lapping_l),
+        lap_r=tuple(cfg.lapping_r), level_sigma2=cfg.level_sigma2,
+    )
+    idx = sm.idx_r.clamp(min=0).long()
+    uv2 = torch.gather(feats_r.xy, -2, idx[..., None].expand(*idx.shape, 2))
+    return torch.where(sm.valid, sm.depth, -1.0), torch.where(sm.valid[..., None], uv2, -1.0)
+
+
+def fisheye_frontend_batch(imgs_u8, cfg, Rlr, tlr):
+    """Batched extraction of B fisheye pairs and their stereo rows.
+    ``imgs_u8`` (2B, H, W): the B left images, then the B right ones, one
+    atlas batch (K1, K2 and K3 once each); then :func:`fisheye_stereo_rows`
+    over the B pairs in one call.  Returns (featsL (leading B), depth (B,
+    NF), uv2 (B, NF, 2))."""
+    B = imgs_u8.shape[0] // 2
+    feats2 = O.extract_orb_batch(imgs_u8.to(torch.float32), **_orb_kw(cfg))
+    featsL = O.FrameFeatures(*(f[:B] for f in feats2))
+    featsR = O.FrameFeatures(*(f[B:] for f in feats2))
+    return (featsL, *fisheye_stereo_rows(featsL, featsR, cfg, Rlr, tlr))
+
+
+def rgbd_depth_rows(feats: O.FrameFeatures, dmap: torch.Tensor, bf: float):
+    """Per-feature depth from a registered depth map and the virtual right
+    coordinate ``u_r = u - bf / d`` (``Frame::ComputeStereoFromRGBD``), for
+    one frame ((NF, ...) features, (H, W) map) or a batch ((B, NF, ...),
+    (B, H, W)): the bilinear depth at the sub-pixel keypoint, the nearest
+    pixel's where any of the four neighbours is invalid (depth edges).
+    Returns (depth, uvr), -1 where the feature or its depth is invalid."""
+    H, W = dmap.shape[-2:]
+    flat = dmap.reshape(*dmap.shape[:-2], H * W)
+    at = lambda yi, xi: torch.gather(flat, -1, yi * W + xi)
+    x = torch.clamp(feats.xy[..., 0], 0.0, W - 1.001)
+    y = torch.clamp(feats.xy[..., 1], 0.0, H - 1.001)
+    x0 = torch.floor(x).long()
+    y0 = torch.floor(y).long()
+    fx_ = x - x0
+    fy_ = y - y0
+    d00 = at(y0, x0)
+    d01 = at(y0, x0 + 1)
+    d10 = at(y0 + 1, x0)
+    d11 = at(y0 + 1, x0 + 1)
+    all_ok = (d00 > 0) & (d01 > 0) & (d10 > 0) & (d11 > 0)
+    d_bil = (
+        d00 * (1 - fx_) * (1 - fy_) + d01 * fx_ * (1 - fy_)
+        + d10 * (1 - fx_) * fy_ + d11 * fx_ * fy_
+    )
+    d_near = at(torch.round(y).long(), torch.round(x).long())
+    d = torch.where(all_ok, d_bil, d_near)
+    valid_d = feats.valid & (d > 0)
+    depth = torch.where(valid_d, d, -1.0)
+    uvr = torch.where(valid_d, feats.xy[..., 0] - bf / torch.clamp(d, min=1e-6), -1.0)
+    return depth, uvr
+
+
+def rgbd_frontend_batch(imgs_u8, depth, cfg):
+    """Batched extraction of B gray images (K1, K2 and K3 once each; no K4)
+    and their depth rows (:func:`rgbd_depth_rows`) from the B registered
+    depth maps ``depth`` (B, H, W) float32.  Returns (feats (leading B), uvr
+    (B, NF), depth (B, NF))."""
+    feats = O.extract_orb_batch(imgs_u8.to(torch.float32), **_orb_kw(cfg))
+    d, uvr = rgbd_depth_rows(feats, depth, cfg.bf)
+    return feats, uvr, d
 
 
 def stereo_track_batch(m, imgs_u8, last_kf_slot, Rcw0, tcw0, vel0, cam, cfg, bf,

@@ -1,6 +1,7 @@
 """Where the time of the port's smoke laps goes, on one NVIDIA GPU.
 
-    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono|mono_reloc|stereo_inertial]
+    python3 scripts/torch_port_profile_lap.py [--mode stereo|rgbd|mono|mono_reloc|stereo_inertial|
+                                                      batch_modes]
                                               [--runs 2] [--out-dir DIR] [--tree DIR]
 
 Drives the lap of ``chip_smoke.py`` (same configuration, same rendered
@@ -58,6 +59,18 @@ stages (``vi_frontend_batch``, ``vi_track_batch``, ``insert_keyframe``,
 ``chain_ba``, ``imu_init``, ``place_recognition``, ``loop_drain``, the
 rest), and the launches of one chain BA (its range's launches over its
 calls in the window).
+
+``--mode batch_modes`` takes ``chip_smoke.py``'s phase 17 apart, on the
+fisheye lap (phase 12's 100 pairs, the TUM-VI configuration) and the RGB-D
+lap (phase 4's 48 frames and depth maps, the mapper on): each whole lap
+frame by frame, through ``process_batch`` at B = 16, and through it with
+``retrack_after_kf`` (frames/s, tracked, keyframes, accuracy as phase 17
+takes it); then frames 1-16 on a fresh facade initialised at frame 0, once
+as one ``process_batch`` dispatch and once frame by frame, under
+``torch.profiler``: kernel launches, host-to-device and device-to-host
+copies (every read of a result on the host), keyframes inserted and the
+profiled host ms, over the window and per frame (~5 minutes with the
+renders).
 
 Prints one JSON object last, and the card's name and power limit before it;
 writes the operations by device time to ``<out-dir>/profile_<mode>_<from>.txt``
@@ -389,9 +402,113 @@ def main_stereo_inertial(args, cs, system) -> int:
     return 0
 
 
+def profile_window(cs, make, frames, batch: bool) -> dict:
+    """Kernel launches, host-to-device and device-to-host copies and host ms
+    of frames 1-``BATCH`` of a fresh facade (``make()``; frame 0
+    initialises it through ``process``) from ``torch.profiler``: as one
+    ``process_batch`` dispatch (``batch``) or through ``process`` one frame
+    at a time.  Totals over the window, and per frame."""
+    import torch
+
+    B = cs.BATCH
+    slam = make()
+    slam._process_one(frames[0], 0)
+    kf0 = slam.kf_inserted
+    ids = list(range(1, B + 1))
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        if batch:
+            slam.process_batch(frames[1:B + 1], ids)
+        else:
+            for i in ids:
+                slam._process_one(frames[i], i)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    r = cs.split_by_range(prof, (), 1)["rest"]
+    out = {"frames": [1, B + 1], "launches": r["launches"], "h2d_copies": r["h2d_copies"],
+           "d2h_copies": r["d2h_copies"], "profiled_host_ms": wall_ms,
+           "kf_inserted": slam.kf_inserted - kf0}
+    out["per_frame"] = {k: out[k] / B for k in ("launches", "h2d_copies", "d2h_copies",
+                                                "profiled_host_ms")}
+    return out
+
+
+def batch_mode_laps(cs, make, frames, accuracy) -> dict:
+    """The whole lap frame by frame, through ``process_batch``, and through
+    it with ``retrack_after_kf`` (``make(retrack)`` builds the facade):
+    frames/s (the card synced at the end), tracked, keyframes, insertions
+    and ``accuracy(slam)``."""
+    import torch
+
+    out = {}
+    for name, retrack in (("frame_by_frame", False), ("batch", False), ("batch_retrack", True)):
+        slam = make(retrack)
+        if name == "frame_by_frame":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i, frame in enumerate(frames):
+                slam._process_one(frame, i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        else:
+            wall, _ = cs.drive_batch_lap(slam, frames)
+        out[name] = {"fps": len(frames) / wall, "wall_s": wall,
+                     "tracked": sum(r.state == "OK" for r in slam.trajectory),
+                     "n_kf": slam.n_kf, "kf_inserted": slam.kf_inserted,
+                     "accuracy_m": accuracy(slam)}
+    return out
+
+
+def main_batch_modes(args, cs) -> int:
+    import dataclasses
+
+    import torch
+
+    from orb_slam3_noted_tpu_torch.pipeline.system import FisheyeStereoSLAM, RGBDSLAM
+
+    dev = torch.device("cuda")
+    smi = cs.nvidia_smi()
+    ref_fe = cs.load_fixture(cs.FE_STEREO_FIXTURE, cs.FE_FRAMES)
+    try:
+        twc, pairs, _ = cs.fisheye_inputs(ref_fe)
+        poses, frames = cs.lap_inputs(cs.N_FRAMES)
+    finally:
+        cs.close_pool()
+    to_dev = lambda a: torch.from_numpy(a).to(dev)
+    cfg_fe, cfg = cs.fisheye_config(ref_fe), cs.lap_config()
+    with_retrack = lambda c, r: dataclasses.replace(c, retrack_after_kf=r)
+
+    def fisheye_ate(slam):
+        ok = np.asarray([r.state == "OK" for r in slam.trajectory])
+        return cs.fisheye_ate(slam.positions(), twc, ok)[0]
+
+    laps = {
+        # accuracy: 17a's ATE with the first pose's offset removed, 17b's
+        # RMSE of the track-time poses
+        "fisheye": (lambda r=False: FisheyeStereoSLAM(with_retrack(cfg_fe, r), device=dev),
+                    [(to_dev(a), to_dev(b)) for a, b in pairs], fisheye_ate),
+        "rgbd": (lambda r=False: RGBDSLAM(with_retrack(cfg, r), device=dev),
+                 [(to_dev(img), to_dev(depth)) for img, _, depth in frames],
+                 lambda slam: cs.track_time_rmse(slam, poses)),
+    }
+    out = {"mode": args.mode, "card": smi}
+    for name, (make, staged, accuracy) in laps.items():
+        out[name] = {"laps": batch_mode_laps(cs, make, staged, accuracy),
+                     "one_dispatch": profile_window(cs, make, staged, batch=True),
+                     "frame_by_frame": profile_window(cs, make, staged, batch=False)}
+        print(f"[{name}] {json.dumps(out[name])}", flush=True)
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono", "mono_reloc", "stereo_inertial"),
+    ap.add_argument("--mode", choices=("stereo", "rgbd", "mono", "mono_reloc", "stereo_inertial",
+                                       "batch_modes"),
                     default="stereo")
     ap.add_argument("--profile-from-batch", type=int, default=4,
                     help="stereo_inertial: first batch profiled")
@@ -416,6 +533,8 @@ def main() -> int:
         return main_reloc(args, cs, system)
     if args.mode == "stereo_inertial":
         return main_stereo_inertial(args, cs, system)
+    if args.mode == "batch_modes":
+        return main_batch_modes(args, cs)
     dev = torch.device("cuda")
     smi = cs.nvidia_smi()
     cfg = cs.lap_config()

@@ -1,17 +1,17 @@
 """The port's CLI against the JAX package's on the CPU: ``resolve_mode`` and
 ``build_system``, a 16-frame 320x240 EuRoC stereo layout through both CLIs
-(``--eval --metrics --times --checkpoint-out``), and the three faults of
-the JAX CLI that the port does not repeat, each shown in both packages:
+(``--eval --metrics --times --checkpoint-out``), and the faults of the JAX
+CLI that the port does not repeat, each shown in both packages:
 
 - a rectification block the driver cannot use: the JAX CLI drops it and
   runs unrectified (``cli.py:148-156``), the port raises;
-- ``fisheye-stereo --batch > 1``: the JAX CLI sends it down the rectified
-  batch path (``cli.py:163-164``), the port runs it frame by frame;
 - ``--eval`` over several ``--seq``: the JAX CLI holds every frame to the
   last sequence's ground truth (``cli.py:261-282``), the port each frame to
   its own sequence's;
 
-and ``--atlas --checkpoint-out``, which fails in both (the port with a
+``fisheye-stereo --batch > 1`` goes to ``process_batch`` in both
+(``cli.py:163-164``): the fault there is the JAX facade's batch hooks,
+which the port's facade does not share.  And ``--atlas --checkpoint-out``, which fails in both (the port with a
 ``TypeError`` naming the Atlas: ROADMAP Queue 3, fault (c)).  The fault
 cases drive a stand-in facade that records its calls.
 """
@@ -97,7 +97,7 @@ def test_build_system(mode, atlas):
 
 @pytest.mark.parametrize("mode,batch,atlas,want", [
     ("stereo", 8, False, 8), ("stereo-inertial", 16, False, 16), ("mono", 4, False, 4),
-    ("mono-inertial", 8, False, 1), ("rgbd", 8, False, 1), ("fisheye-stereo", 8, False, 1),
+    ("mono-inertial", 8, False, 1), ("rgbd", 8, False, 1), ("fisheye-stereo", 8, False, 8),
     ("fisheye-stereo-inertial", 8, False, 8), ("stereo", 8, True, 1), ("stereo", 0, False, 1)])
 def test_frame_batch(mode, batch, atlas, want):
     assert tcli.frame_batch(mode, batch, atlas) == want
@@ -234,8 +234,10 @@ def test_fisheye_stereo_batch_runs_frame_by_frame(tmp_path, monkeypatch, capsys)
     _, j = _drive(jcli, monkeypatch, capsys, argv, gt)
     _, t = _drive(tcli, monkeypatch, capsys, argv, gt)
     assert j.mode == t.mode == "fisheye-stereo"
-    assert j.calls == [("process_batch", [0, 1, 2, 3]), ("process_batch", [4, 5])]  # the fault
-    assert t.calls == [("process", i) for i in range(6)]
+    # both send the batches to process_batch; the JAX facade's batch hooks
+    # are the rectified ones (its fault), the port's the fisheye front end
+    # (tests/test_torch_fisheye.py::test_fisheye_batch_mode_raises)
+    assert j.calls == t.calls == [("process_batch", [0, 1, 2, 3]), ("process_batch", [4, 5])]
 
 
 def test_unusable_rectification_raises(tmp_path, monkeypatch, capsys):

@@ -392,8 +392,13 @@ def e2e_pairs(n=10):
 
 
 @pytest.fixture(scope="module")
-def e2e():
-    pairs, gt = e2e_pairs()
+def e2e_frames():
+    return e2e_pairs()
+
+
+@pytest.fixture(scope="module")
+def e2e(e2e_frames):
+    pairs, gt = e2e_frames
     jcfg = _jcfg()
     js = jsys.FisheyeStereoSLAM(jcfg)
     ts = tsys.FisheyeStereoSLAM(config_from(jcfg), device=CPU)
@@ -435,12 +440,26 @@ def test_fisheye_stereo_slam_lap(e2e):
         jx[..., 0] >= 0).sum()
 
 
-def test_fisheye_batch_mode_raises(e2e):
+def test_fisheye_batch_mode_raises(e2e_frames):
     """The reference's FisheyeStereoSLAM inherits the rectified batch hooks
-    (SAD matching on unrectified images, no second-camera rows): refused."""
-    _, ts, _, _ = e2e
-    with pytest.raises(NotImplementedError, match="unrectified"):
-        ts.process_batch([(None, None)], [0])
+    (SAD matching on unrectified images, no second-camera rows), so the
+    keyframes its batch mode inserts carry no right rows.  The port's batch
+    mode, which used to raise here, runs the lapping-area matcher: its
+    keyframes carry them (tests/test_torch_batch_modes.py holds its lap)."""
+    pairs, _ = e2e_frames
+    n = 1 + 6  # frame 0 initialises, then one batch
+    jcfg = _jcfg()
+    js, ts = jsys.FisheyeStereoSLAM(jcfg), tsys.FisheyeStereoSLAM(config_from(jcfg), device=CPU)
+    rows = []
+    for s, kf_xy_r in ((js, lambda: np.asarray(js.m.kf_xy_r)), (ts, lambda: ts.m.kf_xy_r.numpy())):
+        s.process(pairs[0][0], pairs[0][1], 0)
+        s.process_batch(pairs[1:n], list(range(1, n)))
+        assert len(s.trajectory) == n and s.trajectory[-1].state == "OK"
+        slots = np.flatnonzero(np.asarray(s.kf_frame_ids) > 0)
+        assert len(slots) > 0  # a keyframe inserted by the batch walk
+        rows.append((kf_xy_r()[slots][..., 0] >= 0).sum(axis=1))
+    assert rows[0].max() == 0          # the reference's fault
+    assert rows[1].min() > 50, rows[1]
 
 
 def test_global_ba_on_the_two_camera_map(e2e):

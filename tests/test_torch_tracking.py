@@ -271,9 +271,18 @@ def test_unported_paths_raise(frames):
     ts = _torch_slam()
     cpu = torch.device("cpu")
     # the reference's RGB-D facade inherits the stereo batch hooks, which
-    # would read the depth map as a right image
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ts.process_batch([frames[0]], [0])
+    # SAD-match the depth map as a right image: the keyframes its batch mode
+    # inserts keep other rows than u - bf / d.  The port's batch mode (which
+    # used to raise here) reads the depth map as process does.
+    jcfg = JConfig(camera=JCamera(0, PARAMS), **CFG_KW)
+    jb, tb = jsys.RGBDSLAM(jcfg), RGBDSLAM(ts.cfg, device=cpu)
+    share = []
+    for s in (jb, tb):
+        s.process(frames[0][0], frames[0][1], 0)
+        s.process_batch(frames[1:], list(range(1, len(frames))))
+        assert len(s.trajectory) == len(frames) and s.trajectory[-1].state == OK
+        share.append(_depth_rule_share(s, frames))
+    assert share[0] < 0.5 and share[1] == 1.0, share
     # monocular SLAM is ported: its first frame becomes the reference frame
     mono = MonoSLAM(ts.cfg, device=cpu)
     rec = mono.process(frames[0][0], 0)
@@ -310,6 +319,27 @@ def test_unported_paths_raise(frames):
     assert ts._try_relocalize(SimpleNamespace(desc="desc", valid="valid"), 0) is None
     assert db.calls[0] == ("desc", "valid") and db.calls[1]["n_best"] == 3
     assert db.calls[1]["covis"].shape == (ts.cfg.max_keyframes,) * 2
+
+
+def _depth_rule_share(slam, frames) -> float:
+    """Share of the depth-rule rows (``u - bf / d`` from the frame's depth
+    map, where it gives a value) that the keyframes ``process_batch``
+    inserted keep in ``kf_uvr``, within 1e-3 px; either package's facade."""
+    m = (tms.to_numpy(slam.m) if isinstance(slam.m, tms.MapArrays)
+         else jax.device_get(slam.m)._asdict())
+    slots = np.flatnonzero(np.asarray(slam.kf_frame_ids) > 0)
+    assert len(slots) > 0  # a keyframe inserted by the batch walk
+    n_rule = n_same = 0
+    for s in slots:
+        feats = SimpleNamespace(xy=torch.tensor(m["kf_xy"][s]),
+                                valid=torch.tensor(m["kf_feat_valid"][s]))
+        dmap = torch.from_numpy(frames[int(slam.kf_frame_ids[s])][1])
+        _, want = ttr.rgbd_depth_rows(feats, dmap, slam.cfg.bf)
+        ok = want.numpy() >= 0
+        n_rule += int(ok.sum())
+        n_same += int((np.abs(m["kf_uvr"][s] - want.numpy())[ok] <= 1e-3).sum())
+    assert n_rule > 100
+    return n_same / n_rule
 
 
 class _RecordingDatabase:
