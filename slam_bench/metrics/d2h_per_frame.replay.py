@@ -1,0 +1,7 @@
+"""Device-to-host copies per traced replay frame."""
+
+from slam_bench import readers
+
+
+def read(ctx):
+    return readers.count_per(ctx, "d2h_copies")

@@ -1,0 +1,7 @@
+"""K1-K4: summed least time over summed device time of their launches in the traced replay window, %."""
+
+from slam_bench import readers
+
+
+def read(ctx):
+    return readers.kernels_roofline(ctx)
