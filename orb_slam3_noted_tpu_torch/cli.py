@@ -161,10 +161,11 @@ def main(argv=None):
     p.add_argument("--checkpoint-out", default=None)
     p.add_argument("--checkpoint-in", default=None)
     p.add_argument("--times", action="store_true",
-                   help="print per-stage timing stats (REGISTER_TIMES)")
+                   help="print the port's spans by name (REGISTER_TIMES) and the saturation "
+                        "counters")
     p.add_argument("--metrics", default=None, metavar="PATH",
-                   help="append a JSONL metric record per dispatch (stage deltas, "
-                        "saturation, map gauges)")
+                   help="append a JSONL metric record per dispatch (span and counter "
+                        "deltas, saturation, map gauges)")
     p.add_argument("--device", default="cuda", help="torch device of the SLAM state")
     args = p.parse_args(argv)
 
@@ -180,7 +181,7 @@ def main(argv=None):
 
     device = torch.device(args.device)
     if args.times or args.metrics:
-        StageTimer.enabled = True  # the metric stream's stage deltas ride on the timer
+        StageTimer.enabled = True  # the recorder: spans and counters from here on
     metrics = MetricsStream(args.metrics) if args.metrics else None
 
     cfg, _ = load_settings(args.settings)

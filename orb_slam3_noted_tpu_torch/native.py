@@ -3,20 +3,18 @@
 reader and prefetcher.
 
 The JAX package keeps these in C++ (``native/slamrt.cpp``) beside its
-compute path.  Here each ``StageTimer`` is a Python object, thread-safe
-under its own lock, and the reader and prefetcher are :mod:`.io.images`'
-(``read_gray`` and ``Prefetcher``) under the names ``load_image_gray`` and
-``PrefetchingLoader``.
+compute path.  Here a ``StageTimer`` keeps a span of the port's recorder
+(:mod:`.utils.timing`) from each ``start`` to its ``stop``, and the reader
+and prefetcher are :mod:`.io.images`' (``read_gray`` and ``Prefetcher``)
+under the names ``load_image_gray`` and ``PrefetchingLoader``.
 """
 
 from __future__ import annotations
 
-import threading
-import time
-
 import numpy as np
 
 from orb_slam3_noted_tpu_torch.io.images import Prefetcher, read_gray
+from orb_slam3_noted_tpu_torch.utils.timing import Recorder, _clock
 
 __all__ = ["StageTimer", "load_image_gray", "PrefetchingLoader"]
 
@@ -47,33 +45,28 @@ class PrefetchingLoader(Prefetcher):
 
 
 class StageTimer:
-    """Per-stage wall timers (REGISTER_TIMES), thread-safe, dumpable to a
-    file in the native library's format."""
+    """Per-stage wall timers (REGISTER_TIMES): a span of a recorder of its
+    own from each ``start`` to its ``stop``, kept whether or not recorders
+    are on; dumpable to a file in the native library's format."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self._acc: dict = {}  # name -> [total_ms, max_ms, count, start]
+        self.recorder = Recorder()
+        self._open: dict = {}  # name -> start stamp of the open span
 
     def start(self, name: str):
-        with self._lock:
-            self._acc.setdefault(name, [0.0, 0.0, 0, None])[3] = time.perf_counter()
+        self._open[name] = _clock()
 
     def stop(self, name: str):
-        now = time.perf_counter()
-        with self._lock:
-            a = self._acc.get(name)
-            if a is None or a[3] is None:
-                raise ValueError(f"timer {name!r} stopped before it started")
-            ms = (now - a[3]) * 1e3
-            a[0] += ms
-            a[1] = max(a[1], ms)
-            a[2] += 1
+        now = _clock()
+        t0 = self._open.pop(name, None)
+        if t0 is None:
+            raise ValueError(f"timer {name!r} stopped before it started")
+        self.recorder.add(name, t0, now)
 
     def dump(self, path: str):
         """Writes ``name mean_ms max_ms count`` lines, names in order
         (``slamrt_timer_dump``'s format)."""
-        with self._lock:
-            lines = [f"{name} {total / count if count else 0.0:.3f} {mx:.3f} {count}\n"
-                     for name, (total, mx, count, _) in sorted(self._acc.items())]
+        lines = [f"{name} {sum(ms) / len(ms):.3f} {max(ms):.3f} {len(ms)}\n"
+                 for name, ms in sorted(self.recorder.durations_ms().items())]
         with open(path, "w") as f:
             f.writelines(lines)

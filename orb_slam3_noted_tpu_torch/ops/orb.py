@@ -32,6 +32,7 @@ from orb_slam3_noted_tpu_torch.ops import cuda_kernels as ck
 from orb_slam3_noted_tpu_torch.ops import fast as fast_ops
 from orb_slam3_noted_tpu_torch.ops import image as image_ops
 from orb_slam3_noted_tpu_torch.utils import interop
+from orb_slam3_noted_tpu_torch.utils.timing import span
 
 HALF_PATCH = 15
 
@@ -212,6 +213,14 @@ def level_sigma2(n_levels: int = 8, scale_factor: float = 1.2) -> np.ndarray:
     return (scale_factors(n_levels, scale_factor) ** 2).astype(np.float32)
 
 
+# spans inside extraction (``utils.timing.span``: with nothing recording, a
+# flag check and no profiler event): the pyramid and its atlas, then the rest
+PYRAMID_RANGE = "pyramid"
+SELECT_RANGE = "fast_select"
+ANGLE_RANGE = "ic_angle"
+DESCRIBE_RANGE = "describe"
+
+
 def extract_orb(
     img: torch.Tensor,
     n_features: int = 1200,
@@ -222,17 +231,12 @@ def extract_orb(
 ) -> FrameFeatures:
     """Full ORB pipeline for one grayscale image (H, W) float32 [0, 255]
     (or a (B, H, W) batch)."""
-    levels = image_ops.build_pyramid(img, n_levels, scale_factor)
-    return extract_from_pyramid(
-        tuple(levels), n_features=n_features, n_levels=n_levels,
+    with span(PYRAMID_RANGE):
+        atlas = image_ops.build_atlas(tuple(image_ops.build_pyramid(img, n_levels, scale_factor)))
+    return extract_from_atlas(
+        atlas, n_features=n_features, n_levels=n_levels,
         scale_factor=scale_factor, th_high=th_high, th_low=th_low,
     )
-
-
-# profiler ranges inside extraction (free unless a torch.profiler is recording)
-SELECT_RANGE = "fast_select"
-ANGLE_RANGE = "ic_angle"
-DESCRIBE_RANGE = "describe"
 
 
 class Detections(NamedTuple):
@@ -313,7 +317,7 @@ def detect_from_atlas(
     sizes = atlas.sizes
     batch = atlas.image.shape[:-2]
     budgets = _budgets(n_features, n_levels, scale_factor, len(sizes))
-    with torch.profiler.record_function(SELECT_RANGE):
+    with span(SELECT_RANGE):
         cand_s, cand_i = ck.fast_candidates(atlas.image, sizes, budgets, th_high, th_low, 16)
         lay = ck.candidate_layout(sizes, budgets)
         kps = [
@@ -326,7 +330,7 @@ def detect_from_atlas(
         n = len(batch)  # keypoints concatenate along the axis after the batch
         xy, response, valid = (torch.cat(parts, dim=n) for parts in zip(*kps))
         level = _levels_for(budgets, batch, xy.device)
-    with torch.profiler.record_function(ANGLE_RANGE):
+    with span(ANGLE_RANGE):
         angle = ic_angles_atlas(atlas, xy, level, runs=tuple(b for b in budgets if b > 0))
     return Detections(xy, level, angle, response, valid)
 
@@ -336,7 +340,7 @@ def describe(atlas: image_ops.PyramidAtlas, det: Detections) -> FrameFeatures:
     features come out in ``det``'s order, at level-0 coordinates.  A leading
     batch dimension on both (a stereo pair) goes through the same two
     launches."""
-    with torch.profiler.record_function(DESCRIBE_RANGE):
+    with span(DESCRIBE_RANGE):
         blur = ck.gaussian_blur7(atlas.image, atlas.sizes)
         desc = ck.brief_sample(blur, atlas.sizes, det.xy.to(torch.int32), det.angle, det.level)
         # exact level->0 mapping with half-pixel centres and the actual

@@ -35,6 +35,8 @@ inside a group of more than one rank.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from orb_slam3_noted_tpu_torch.geometry import se3, so3
@@ -44,9 +46,22 @@ from orb_slam3_noted_tpu_torch.ops.segsum import segment_order, segment_sum
 from orb_slam3_noted_tpu_torch.optim import factors
 from orb_slam3_noted_tpu_torch.optim.ba import BAProblem, BAResult
 from orb_slam3_noted_tpu_torch.optim.robust import chi2_threshold, huber_cost, huber_weight
+from orb_slam3_noted_tpu_torch.utils.timing import count, span
 
-# profiler range around the merge of a finished GBA into the live map
+# spans (``utils.timing.span``): the merge of a finished GBA into the live
+# map; a whole GBA call; each LM step, and in it the linearisation, the
+# reduced camera system and its right-hand side, the PCG solve and the
+# update (back-substitution, the new cost, the accept test); the outlier
+# reclassification between the two phases
 MERGE_RANGE = "gba_merge"
+GBA_RANGE = "global_ba"
+LM_STEP_RANGE = "gba_lm_step"
+LINEARIZE_RANGE = "gba_linearize"
+SCHUR_RANGE = "gba_schur"
+PCG_RANGE = "gba_pcg"
+UPDATE_RANGE = "gba_update"
+RECLASSIFY_RANGE = "gba_reclassify"
+_CALLS = itertools.count()  # the index a GBA call's spans carry
 
 
 def pose_onehot(obs: factors.ReprojObs, K: int) -> torch.Tensor:
@@ -141,26 +156,27 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
     :func:`..optim.ba.bundle_adjust` (Huber, chi2 reclassification, plain
     least squares), with the matrix-free Schur/PCG inner solver;
     ``cam2``/``Rrl``/``trl`` the second camera of a fisheye rig."""
-    rig2 = (cam2, Rrl, trl)
-    obs = prob.obs
-    oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
-    pt_order = segment_order(obs.point_idx, prob.points.shape[0], obs.valid)
+    with span(GBA_RANGE, call=next(_CALLS)):
+        rig2 = (cam2, Rrl, trl)
+        obs = prob.obs
+        oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
+        pt_order = segment_order(obs.point_idx, prob.points.shape[0], obs.valid)
 
-    def phase(Rcw, tcw, points, active, use_huber, n):
-        lam = torch.tensor(1e-4, dtype=tcw.dtype, device=tcw.device)
-        for _ in range(n):
-            Rcw, tcw, points, lam, _ = _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active,
-                                                    use_huber, lam, bf, cg_iters, oh_pose,
-                                                    pt_order, rig2)
-        return Rcw, tcw, points
+        def phase(Rcw, tcw, points, active, use_huber, n):
+            lam = torch.tensor(1e-4, dtype=tcw.dtype, device=tcw.device)
+            for _ in range(n):
+                Rcw, tcw, points, lam, _ = _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active,
+                                                        use_huber, lam, bf, cg_iters, oh_pose,
+                                                        pt_order, rig2)
+            return Rcw, tcw, points
 
-    Rcw, tcw, points = phase(prob.Rcw, prob.tcw, prob.points, obs.valid, True, n_iters)
-    active = gba_reclassify(cam, Rcw, tcw, points, obs, bf, *rig2)
-    Rcw, tcw, points = phase(Rcw, tcw, points, active, False, n_iters_final)
-    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, *rig2)
-    inlier = obs.valid & ok & (chi2 <= chi2_threshold(obs))
-    cost = torch.sum(torch.where(inlier, chi2, 0.0))
-    return BAResult(Rcw=Rcw, tcw=tcw, points=points, chi2=chi2, inlier=inlier, cost=cost)
+        Rcw, tcw, points = phase(prob.Rcw, prob.tcw, prob.points, obs.valid, True, n_iters)
+        active = gba_reclassify(cam, Rcw, tcw, points, obs, bf, *rig2)
+        Rcw, tcw, points = phase(Rcw, tcw, points, active, False, n_iters_final)
+        _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, *rig2)
+        inlier = obs.valid & ok & (chi2 <= chi2_threshold(obs))
+        cost = torch.sum(torch.where(inlier, chi2, 0.0))
+        return BAResult(Rcw=Rcw, tcw=tcw, points=points, chi2=chi2, inlier=inlier, cost=cost)
 
 
 def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
@@ -174,6 +190,14 @@ def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bo
     is the same on every rank; the landmark update is gathered once.
     ``oh_pose`` is the shard's pose one-hot, ``pt_order`` the segment order
     of its local point ids.  Returns (Rcw, tcw, points, lam, cost)."""
+    count("gba_lm_steps")
+    with span(LM_STEP_RANGE):
+        return _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters,
+                        mesh, oh_pose, pt_order, rig2)
+
+
+def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters, mesh,
+             oh_pose, pt_order, rig2):
     K, M = Rcw.shape[0], points.shape[0]
     dtype, dev = tcw.dtype, tcw.device
     Mb = M // mesh.size
@@ -183,22 +207,25 @@ def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bo
     obs_l = obs._replace(point_idx=li)
     pts_l = points[base:base + Mb]
     prob_l = prob._replace(point_fixed=prob.point_fixed[base:base + Mb])
-    W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, pts_l, obs_l, prob_l, active,
-                                                 use_huber, bf, oh_pose, pt_order, rig2)
-    Hpp, gp, cost_old = mesh.psum(Hpp), mesh.psum(gp), mesh.psum(cost_old)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    Hpp_d = Hpp + lam * Hpp * eye6 + (1e-8 + prob.pose_fixed.to(dtype))[:, None, None] * eye6
-    Hll_d = Hll + lam * Hll * eye3 + (1e-8 + prob_l.point_fixed.to(dtype))[:, None, None] * eye3
-    Cinv = inv3(Hll_d)  # (Mb, 3, 3): the owned block only
+    with span(LINEARIZE_RANGE):
+        W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, pts_l, obs_l, prob_l, active,
+                                                     use_huber, bf, oh_pose, pt_order, rig2)
+        Hpp, gp, cost_old = mesh.psum(Hpp), mesh.psum(gp), mesh.psum(cost_old)
+    with span(SCHUR_RANGE):
+        eye6 = torch.eye(6, dtype=dtype, device=dev)
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        Hpp_d = Hpp + lam * Hpp * eye6 + (1e-8 + prob.pose_fixed.to(dtype))[:, None, None] * eye6
+        Hll_d = (Hll + lam * Hll * eye3
+                 + (1e-8 + prob_l.point_fixed.to(dtype))[:, None, None] * eye3)
+        Cinv = inv3(Hll_d)  # (Mb, 3, 3): the owned block only
 
-    wc = torch.einsum("oij,ojk->oik", W, Cinv[li])
-    Pk_sub = (oh_pose @ torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36)).reshape(K, 6, 6)
-    Pk = Hpp_d - mesh.psum(Pk_sub)
-    Pk = 0.5 * (Pk + Pk.transpose(1, 2)) + 1e-6 * eye6
-    Pinv = torch.linalg.solve_ex(Pk, eye6.expand(K, 6, 6)).result
+        wc = torch.einsum("oij,ojk->oik", W, Cinv[li])
+        Pk_sub = (oh_pose @ torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36)).reshape(K, 6, 6)
+        Pk = Hpp_d - mesh.psum(Pk_sub)
+        Pk = 0.5 * (Pk + Pk.transpose(1, 2)) + 1e-6 * eye6
+        Pinv = torch.linalg.solve_ex(Pk, eye6.expand(K, 6, 6)).result
 
-    rhs = -gp + mesh.psum(_schur_rhs_coupling(W, Cinv, gl, li, oh_pose))
+        rhs = -gp + mesh.psum(_schur_rhs_coupling(W, Cinv, gl, li, oh_pose))
 
     def mv(x):
         utx = segment_sum(torch.einsum("oij,oi->oj", W, x[pi]), li, Mb, pt_order)
@@ -206,20 +233,22 @@ def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bo
         uy = mesh.psum(oh_pose @ torch.einsum("oij,oj->oi", W, y[li]))
         return torch.einsum("kij,kj->ki", Hpp_d, x) - uy
 
-    dp = _pcg(mv, Pinv, rhs, cg_iters)
-    utdp = segment_sum(torch.einsum("oij,oi->oj", W, dp[pi]), li, Mb, pt_order)
-    dl_l = torch.einsum("mij,mj->mi", Cinv, -gl - utdp)
-    dl = mesh.gather_rows(dl_l)  # (M, 3), every rank's block
+    with span(PCG_RANGE):
+        dp = _pcg(mv, Pinv, rhs, cg_iters)
+    with span(UPDATE_RANGE):
+        utdp = segment_sum(torch.einsum("oij,oi->oj", W, dp[pi]), li, Mb, pt_order)
+        dl_l = torch.einsum("mij,mj->mi", Cinv, -gl - utdp)
+        dl = mesh.gather_rows(dl_l)  # (M, 3), every rank's block
 
-    R_new, t_new = se3.compose(se3.exp(dp), (Rcw, tcw))
-    R_new = so3.normalize(R_new)
-    p_new = points + dl
-    cost_new = mesh.psum(_eval_blocks(cam, R_new, t_new, pts_l + dl_l, obs_l, prob_l, active,
-                                      use_huber, bf, oh_pose, pt_order, rig2)[-1])
-    better = cost_new < cost_old
-    return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
-            torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
-            torch.where(better, cost_new, cost_old))
+        R_new, t_new = se3.compose(se3.exp(dp), (Rcw, tcw))
+        R_new = so3.normalize(R_new)
+        p_new = points + dl
+        cost_new = mesh.psum(_eval_blocks(cam, R_new, t_new, pts_l + dl_l, obs_l, prob_l, active,
+                                          use_huber, bf, oh_pose, pt_order, rig2)[-1])
+        better = cost_new < cost_old
+        return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
+                torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
+                torch.where(better, cost_new, cost_old))
 
 
 def distributed_global_ba(cam: cam_mod.Camera, mesh, prob: BAProblem, bf: float = 0.0,
@@ -233,9 +262,14 @@ def distributed_global_ba(cam: cam_mod.Camera, mesh, prob: BAProblem, bf: float 
     takes the observations of its block (``shard_obs_by_point_block``).
     The second camera's rows (``cam2``, ``Rrl``, ``trl``) stay on every
     shard.  Returns (Rcw, tcw, points, cost), the same on every rank."""
+    with span(GBA_RANGE, call=next(_CALLS)):
+        return _distributed_global_ba(cam, mesh, prob, bf, n_iters, n_iters_final, cg_iters,
+                                      (cam2, Rrl, trl))
+
+
+def _distributed_global_ba(cam, mesh, prob, bf, n_iters, n_iters_final, cg_iters, rig2):
     from orb_slam3_noted_tpu_torch.parallel.dist_ba import shard_obs_by_point_block
 
-    rig2 = (cam2, Rrl, trl)
     n = mesh.size
     M0 = prob.points.shape[0]
     Mb = -(-M0 // n)
@@ -315,9 +349,10 @@ gba_step_jit = gba_step  # the JAX package's name for it (jitted there)
 
 def gba_reclassify(cam, Rcw, tcw, points, obs, bf: float = 0.0, cam2=None, Rrl=None, trl=None):
     """Outlier reclassification between the Huber and the plain phase."""
-    _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, cam2, Rrl,
-                                                    trl)
-    return obs.valid & ok & (chi2 <= chi2_threshold(obs))
+    with span(RECLASSIFY_RANGE):
+        _, _, _, chi2, ok, _ = factors.reproj_residuals(cam, Rcw, tcw, points, obs, bf, cam2,
+                                                        Rrl, trl)
+        return obs.valid & ok & (chi2 <= chi2_threshold(obs))
 
 
 def apply_gba_deltas(m, snapR, snapt, snapp, Rcw, tcw, points, kf_live, mp_live):
@@ -380,7 +415,7 @@ class SlicedGBA:
         applies only where the frame id still matches."""
         while not self.done:
             self.step()
-        with torch.profiler.record_function(MERGE_RANGE):
+        with span(MERGE_RANGE):
             kf_live = (self.snap_kf_valid & m_live.kf_valid
                        & (m_live.kf_frame_id == self.snap_kf_fid))
             mp_live = self.snap_mp_valid & m_live.mp_valid & ~self.prob.point_fixed

@@ -54,8 +54,11 @@ from orb_slam3_noted_tpu_torch.pipeline import inertial_mapping as IMAP
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
 from orb_slam3_noted_tpu_torch.pipeline.system import (
+    COMPACT_RANGE,
     EXTRACTION_RANGE,
+    FRAME_RANGE,
     KEYFRAME_RANGE,
+    MAPPER_RANGE,
     NOT_INITIALIZED,
     OK,
     STEREO_RANGE,
@@ -66,7 +69,7 @@ from orb_slam3_noted_tpu_torch.pipeline.system import (
     _np,
 )
 from orb_slam3_noted_tpu_torch.utils.interop import pull as _pull
-from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
+from orb_slam3_noted_tpu_torch.utils.timing import count, device_read, report_saturation, span
 
 # the most samples a keyframe interval keeps (the oldest extras are dropped,
 # as the JAX package's pad drops them), and the most an anchor -> frame span
@@ -74,8 +77,8 @@ from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
 _KF_PAD = 1024
 _BATCH_PAD = 512
 
-# profiler ranges of the inertial stages (free unless a torch.profiler
-# records): a batch's front end and tracking dispatch, a chain BA, an IMU
+# spans of the inertial stages (``utils.timing.span``: with nothing
+# recording, a flag check): a batch's front end and tracking dispatch, a chain BA, an IMU
 # initialisation solve with its re-integration and FullInertialBA
 VI_FRONTEND_RANGE = "vi_frontend_batch"
 VI_TRACK_RANGE = "vi_track_batch"
@@ -345,7 +348,7 @@ class InertialMixin:
 
     # -- IMU initialisation stages -------------------------------------
     def _try_imu_init(self, t):
-        with torch.profiler.record_function(IMU_INIT_RANGE):
+        with span(IMU_INIT_RANGE):
             return self._try_imu_init_timed(t)
 
     def _try_imu_init_timed(self, t):
@@ -420,7 +423,7 @@ class InertialMixin:
 
     # -- inertial local mapping ----------------------------------------
     def _chain_ba(self, window=None, bias_prior_g=0.0, bias_prior_a=0.0, n_iters=4):
-        with torch.profiler.record_function(CHAIN_BA_RANGE):
+        with span(CHAIN_BA_RANGE):
             return self._chain_ba_timed(window, bias_prior_g, bias_prior_a, n_iters)
 
     def _chain_ba_timed(self, window=None, bias_prior_g=0.0, bias_prior_a=0.0, n_iters=4):
@@ -483,7 +486,8 @@ class InertialMixin:
                                    obs_c, None, cfg.bf, *T._second_camera(cfg, self.device))
         Rcw, tcw = cam_from_body(VIState(res.Rwb, res.twb, res.vel, res.bg, res.ba), self.calib)
         self.cur_vel = res.vel
-        n_inl = int(res.n_inliers)
+        with device_read():
+            n_inl = int(res.n_inliers)
         keep_c = obs_c.valid & res.inliers
         tgt = torch.where(keep_c, f_idx[sel], NF)
         mp_of_feat = torch.full((NF + 1,), -1, dtype=torch.int32, device=sel.device)
@@ -589,9 +593,13 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
         """Feed one grayscale image at time ``t`` (default frame_id / fps)
         with the IMU samples since the last frame (``acc``, ``gyr`` (M, 3),
         ``imu_t`` (M,))."""
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            return self._process_mono(img, frame_id, t, acc, gyr, imu_t)
+
+    def _process_mono(self, img, frame_id, t, acc, gyr, imu_t):
         t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
         self._keep_image(img)
-        with torch.profiler.record_function(EXTRACTION_RANGE):
+        with span(EXTRACTION_RANGE):
             feats = self._extract(self._on_device(img, torch.float32))
         if self.state == NOT_INITIALIZED:
             n_kf_before, prev_ref = self.n_kf, self.ref_frame_id
@@ -653,6 +661,12 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
                                       uvr=uvr, depth=depth, xy_r=xy_r)
             self._on_inertial_keyframe(self.last_kf_slot, t)
             return
+        with span(MAPPER_RANGE):
+            self._inertial_mapper_pass(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr, depth,
+                                       xy_r, t)
+
+    def _inertial_mapper_pass(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr, depth,
+                              xy_r, t):
         # the inertial mapper: one mapper pass without visual BA (insert ->
         # depth points -> triangulation -> fuse -> point cull -> statistics),
         # then LocalInertialBA over the chain
@@ -661,27 +675,31 @@ class MonoInertialSLAM(InertialMixin, MonoSLAM):
         if slot is None:
             return  # at capacity with nothing recyclable
         self.kf_inserted += 1
+        count("keyframes_inserted")
         Rcw, tcw = (torch.as_tensor(x, dtype=torch.float32).to(self.device) for x in (Rcw, tcw))
         NF = cfg.n_features
         none = lambda: torch.full((NF,), -1.0, dtype=torch.float32, device=self.device)
         if self._mp_remap is not None:
             mp_of_feat = MS.remap_point_bindings(mp_of_feat, self._mp_remap)
         if self.n_mp > 0.85 * cfg.max_map_points:
-            # compaction permutes point slots under an in-flight GBA: finish it
-            if self.loop_closer is not None:
-                self.loop_closer.finish_gba(self)
-            self.m, n_valid, inv = MS.compact_map_points(self.m)
-            self.n_mp = int(n_valid)
-            mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
-            self._mp_remap = inv if self._mp_remap is None else (
-                MS.compose_point_remaps(self._mp_remap, inv))
-        with torch.profiler.record_function(KEYFRAME_RANGE):
+            with span(COMPACT_RANGE):
+                # compaction permutes point slots under an in-flight GBA: finish it
+                if self.loop_closer is not None:
+                    self.loop_closer.finish_gba(self)
+                self.m, n_valid, inv = MS.compact_map_points(self.m)
+                with device_read():
+                    self.n_mp = int(n_valid)
+                mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
+                self._mp_remap = inv if self._mp_remap is None else (
+                    MS.compose_point_remaps(self._mp_remap, inv))
+        with span(KEYFRAME_RANGE):
             self.m, n_mp = T.insert_keyframe_step(
                 self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
                 uvr if uvr is not None else none(), depth if depth is not None else none(),
                 self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors, bf=cfg.bf,
                 has_depth=depth is not None, visual_ba=False, xy_r=xy_r)
-            self.n_mp = int(n_mp)
+            with device_read():
+                self.n_mp = int(n_mp)
         self.kf_frame_ids[slot] = int(frame_id)
         self.last_kf_slot = slot
         self.frames_since_kf = 0
@@ -723,16 +741,20 @@ class StereoInertialSLAM(MonoInertialSLAM):
     def process(self, img_left, img_right, frame_id, t=None, acc=None, gyr=None, imu_t=None):
         """Feed one rectified pair at time ``t`` with the IMU samples since
         the last frame."""
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            return self._process_vi_pair(img_left, img_right, frame_id, t, acc, gyr, imu_t)
+
+    def _process_vi_pair(self, img_left, img_right, frame_id, t, acc, gyr, imu_t):
         t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
         cfg = self.cfg
         self._keep_image(img_left)
-        with torch.profiler.record_function(EXTRACTION_RANGE):
+        with span(EXTRACTION_RANGE):
             pair = torch.stack([self._on_device(img_left, torch.float32),
                                 self._on_device(img_right, torch.float32)])
             pyr, atlas = self._pyramid_atlas(pair)
             both = O.extract_from_atlas(atlas, **self._orb_args())
             feats, feats_r = (_frame(both, i) for i in range(2))
-        with torch.profiler.record_function(STEREO_RANGE):
+        with span(STEREO_RANGE):
             sm = match_stereo(
                 feats, feats_r, tuple(p[0] for p in pyr), tuple(p[1] for p in pyr), bf=cfg.bf,
                 baseline=cfg.bf / self.cam.fx, n_levels=cfg.n_levels,
@@ -819,6 +841,11 @@ class StereoInertialSLAM(MonoInertialSLAM):
         and inserts keyframes (the remaining frames keep their results,
         computed against the pre-keyframe anchor, unless
         ``cfg.retrack_after_kf``)."""
+        with span(FRAME_RANGE, frame=frame_ids[0] if len(frame_ids) else None,
+                  frames=len(frame_ids)):
+            return self._process_vi_batch(imgs, frame_ids, ts, acc, gyr, imu_t)
+
+    def _process_vi_batch(self, imgs, frame_ids, ts, acc, gyr, imu_t):
         cfg = self.cfg
         if acc is not None:
             self.feed_imu(acc, gyr, imu_t)
@@ -833,7 +860,7 @@ class StereoInertialSLAM(MonoInertialSLAM):
 
         B = len(imgs)
         ids, tss = list(frame_ids), list(ts)
-        with torch.profiler.record_function(VI_FRONTEND_RANGE):
+        with span(VI_FRONTEND_RANGE):
             feats_all, uvr_all, depth_all = T.stereo_frontend_batch(
                 StereoSLAM._prep_batch(self, imgs, 0), self.cam, cfg, bf=cfg.bf)
         # drain queued loop detections after the front end is enqueued: the
@@ -862,7 +889,7 @@ class StereoInertialSLAM(MonoInertialSLAM):
             else:
                 feats_cur, uvr_cur, depth_cur = feats_all, uvr_all, depth_all
             cm = torch.arange(B, device=self.device) < (B - pos)
-            with torch.profiler.record_function(VI_TRACK_RANGE):
+            with span(VI_TRACK_RANGE):
                 self.m, Rs, ts_d, n_inls, mp_feats, vels = vi_track_batch(
                     self.m, feats_cur, uvr_cur, anchor_slot, self.ki.vel[anchor_slot],
                     self.ki.bg[anchor_slot], self.ki.ba[anchor_slot], acc_d, gyr_d, dts_d,
@@ -935,19 +962,22 @@ class FisheyeStereoInertialSLAM(StereoInertialSLAM):
     def process(self, img_left, img_right, frame_id, t=None, acc=None, gyr=None, imu_t=None):
         """Feed one fisheye pair at time ``t`` with the IMU samples since the
         last frame."""
-        t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
-        self._keep_image(img_left)
-        feats, depth, uv2 = FisheyeStereoSLAM._fisheye_frontend(self, img_left, img_right)
-        return self._after_frontend(feats, frame_id, t, None, depth, xy_r=uv2)
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            t = self._begin_frame(frame_id, t, acc, gyr, imu_t)
+            self._keep_image(img_left)
+            feats, depth, uv2 = FisheyeStereoSLAM._fisheye_frontend(self, img_left, img_right)
+            return self._after_frontend(feats, frame_id, t, None, depth, xy_r=uv2)
 
     def process_batch(self, imgs, frame_ids, ts=None, acc=None, gyr=None, imu_t=None):
         """The (left, right) pairs through :meth:`process` one after another
         (times ``ts``, default frame_id / fps), with the batch's IMU samples
         fed first: the fisheye front end has no batched dispatch."""
-        if acc is not None:
-            self.feed_imu(acc, gyr, imu_t)
-        if ts is None:
-            ts = [float(f) / self.cfg.fps for f in frame_ids]
-        for (left, right), fid, t in zip(imgs, frame_ids, ts):
-            self.process(left, right, fid, t=t)
-        return self.trajectory[-1] if self.trajectory else None
+        with span(FRAME_RANGE, frame=frame_ids[0] if len(frame_ids) else None,
+                  frames=len(frame_ids)):
+            if acc is not None:
+                self.feed_imu(acc, gyr, imu_t)
+            if ts is None:
+                ts = [float(f) / self.cfg.fps for f in frame_ids]
+            for (left, right), fid, t in zip(imgs, frame_ids, ts):
+                self.process(left, right, fid, t=t)
+            return self.trajectory[-1] if self.trajectory else None

@@ -54,8 +54,9 @@ from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.pipeline import tracking as T
 from orb_slam3_noted_tpu_torch.place.database import KeyFrameDatabase, _detect_nbest
 from orb_slam3_noted_tpu_torch.utils.interop import pull
+from orb_slam3_noted_tpu_torch.utils.timing import span
 
-# profiler ranges (free unless a torch.profiler records): a correction, and
+# spans (``utils.timing.span``: with nothing recording, a flag check): a correction, and
 # inside detection and correction the steps of the ladder and the pose graph
 # (with its write-back); GBA's merge is ``gba.MERGE_RANGE``
 CORRECT_RANGE = "loop_correct"
@@ -274,14 +275,14 @@ class LoopCloser:
 
         fix_scale = _scale_fixed(slam)
         for cand in verified:
-            with torch.profiler.record_function(RANSAC_RANGE):
+            with span(RANSAC_RANGE):
                 x_cand, x_cur, ok, idx_cand = _matched_point_pairs(m, slot, cand)
                 res = sim3_ransac(x_cand, x_cur, ok, self._sim3_sets(ok, slot),
                                   fix_scale=fix_scale)
             if have_cam:
                 # the ladder: Sim(3)-guided projection matching grows the
                 # pairs, the reprojection optimisation refines and gates them
-                with torch.profiler.record_function(REFINE_RANGE):
+                with span(REFINE_RANGE):
                     ref = sim3_refine(m, slot, cand, res.R, res.t, res.s, slam.cam, slam.cfg,
                                       seed_idx=idx_cand, seed_ok=ok & res.inliers)
                     n_ok, success, n_inl, rn_inl = pull(torch.sum(ok), res.success,
@@ -305,7 +306,7 @@ class LoopCloser:
 
     def _accept(self, slam, slot, cand, res, covis=None):
         """Run the correction and record the accepted loop."""
-        with torch.profiler.record_function(CORRECT_RANGE):
+        with span(CORRECT_RANGE):
             self._correct(slam, slot, cand, res, covis=covis)
         self.loop_edges.append((slot, cand))
         self.loops_closed += 1
@@ -332,7 +333,7 @@ class LoopCloser:
         t_rel = tn - R_rel @ tp
         Rg, tg, sg = sim3.compose((R_rel, t_rel, torch.ones((), dtype=tn.dtype, device=tn.device)),
                                   (p["R"], p["t"], p["s"]))
-        with torch.profiler.record_function(REFINE_RANGE):
+        with span(REFINE_RANGE):
             ref = sim3_refine(m, slot, p["cand"], Rg, tg, sg, cam, cfg)
             (n_inl,) = pull(ref.n_inliers)
         if int(n_inl) < self.sim3_min_inliers:
@@ -392,7 +393,7 @@ class LoopCloser:
         host[n_real + 1 + cand] = 1.0
         wf = torch.from_numpy(host).to(dev)
         valid = torch.ones(n_real + 1, dtype=torch.bool, device=dev)
-        with torch.profiler.record_function(POSE_GRAPH_RANGE):
+        with span(POSE_GRAPH_RANGE):
             if inertial_4dof:
                 # yaw + translation: a Sim(3)/SE(3) graph would let the
                 # correction tilt the gravity direction the IMU made

@@ -77,19 +77,31 @@ from orb_slam3_noted_tpu_torch.place.database import KeyFrameDatabase
 from orb_slam3_noted_tpu_torch.place.pretrained import load_default_vocabulary
 from orb_slam3_noted_tpu_torch.place.vocab import train_vocabulary
 from orb_slam3_noted_tpu_torch.utils.interop import pull as _pull, set_scalar
+from orb_slam3_noted_tpu_torch.utils.timing import count, device_read, span
 
 NOT_INITIALIZED = "NOT_INITIALIZED"
 OK = "OK"
 RECENTLY_LOST = "RECENTLY_LOST"
 LOST = "LOST"
 
-# profiler ranges around a frame's ORB extraction and stereo matching
-# (free unless a torch.profiler is recording)
+# spans (``utils.timing.span``: with nothing recording, one flag check and no
+# profiler event; recording, a profiler range and a kept span).  The root of
+# each ``process`` / ``process_batch`` call, which carries its frame id (a
+# batch's first id and its size) to every span inside it
+FRAME_RANGE = "frame"
+# a frame's ORB extraction and stereo matching (the batch front ends' stereo
+# matching in pipeline/tracking.py)
 EXTRACTION_RANGE = "orb_extraction"
-STEREO_RANGE = "stereo_matching"
-# inside extraction: the pyramid and its atlas here, the rest in ops/orb.py
-PYRAMID_RANGE = "pyramid"
+STEREO_RANGE = T.STEREO_RANGE
+# inside extraction: the pyramid and its atlas, the rest in ops/orb.py
+PYRAMID_RANGE = O.PYRAMID_RANGE
 EXTRACTION_PARTS = (PYRAMID_RANGE, O.SELECT_RANGE, O.ANGLE_RANGE, O.DESCRIBE_RANGE)
+# a tracked frame's bookkeeping after ``tracking.track_frame`` (relocalisation
+# when it failed, the record, the keyframe decision), without the mapper
+# pass; the whole mapper pass of a keyframe, and in it the point compaction
+AFTER_TRACK_RANGE = "after_track"
+MAPPER_RANGE = "mapper_pass"
+COMPACT_RANGE = "compact_points"
 # the facade's stages: initialisation attempts, a batch dispatch, a re-track
 # after a mid-batch keyframe, the mapper pass of a keyframe, a relocalisation
 # attempt's matching, PnP and re-track, and the place-recognition work (a
@@ -111,7 +123,10 @@ RELOC_MIN_MATCHES = 15  # SearchByBoW matches a candidate needs before PnP
 
 
 def _np(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    if isinstance(x, torch.Tensor):
+        with device_read():
+            return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def _frame(feats: O.FrameFeatures, i) -> O.FrameFeatures:
@@ -200,8 +215,9 @@ class MonoSLAM:
         """Drain the deferred loop-closing work: the queued detections (one
         device-to-host copy), then the deferred fuses and the in-flight GBA."""
         if self._pending_loops:
-            with torch.profiler.record_function(LOOP_DRAIN_RANGE):
+            with span(LOOP_DRAIN_RANGE):
                 pendings, self._pending_loops = self._pending_loops, []
+                count("loop_detect_drained", len(pendings))
                 if self.loop_closer.finish_detect_many(self, pendings):
                     self.state = OK
         if self.loop_closer is not None:
@@ -213,7 +229,7 @@ class MonoSLAM:
         fuse, or a GBA step): the single-device stand-in for the reference's
         GBA thread."""
         if self.loop_closer is not None:
-            with torch.profiler.record_function(BACKGROUND_RANGE):
+            with span(BACKGROUND_RANGE):
                 self.loop_closer.service_gba(self, n_steps=1)
 
     def _frame_boundary(self):
@@ -355,16 +371,17 @@ class MonoSLAM:
     # ------------------------------------------------------------------
     def process(self, img, frame_id: int):
         """Feed one grayscale image (H, W), values in [0, 255]."""
-        self._frame_boundary()
-        self._keep_image(img)
-        if self.state == NOT_INITIALIZED:
-            with torch.profiler.record_function(INIT_RANGE):
-                with torch.profiler.record_function(EXTRACTION_RANGE):
-                    feats = self._extract(self._on_device(img, torch.float32))
-                self._try_initialize(feats, frame_id)
-        else:
-            self._track_fused(self._on_device(img, torch.uint8), frame_id)
-        return self.trajectory[-1] if self.trajectory else None
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            self._frame_boundary()
+            self._keep_image(img)
+            if self.state == NOT_INITIALIZED:
+                with span(INIT_RANGE):
+                    with span(EXTRACTION_RANGE):
+                        feats = self._extract(self._on_device(img, torch.float32))
+                    self._try_initialize(feats, frame_id)
+            else:
+                self._track_fused(self._on_device(img, torch.uint8), frame_id)
+            return self.trajectory[-1] if self.trajectory else None
 
     def _track_fused(self, img_u8, frame_id):
         Rp, tp = self._prediction()
@@ -372,7 +389,9 @@ class MonoSLAM:
             self.m, img_u8, self.last_kf_slot, Rp, tp, self.cam, self.cfg, bf=0.0,
         )
         self._mp_remap = None  # fresh bindings against the current map
-        self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, int(n_inl), mp_of_feat)
+        with device_read():
+            n = int(n_inl)
+        self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, n, mp_of_feat)
 
     # ------------------------------------------------------------------
     def _minimal_sets(self, valid: torch.Tensor, seed: int) -> torch.Tensor:
@@ -552,6 +571,11 @@ class MonoSLAM:
         tail), and with ``retrack_after_kf`` re-tracks the frames after the
         first keyframe against the updated map without re-extracting.
         """
+        with span(FRAME_RANGE, frame=frame_ids[0] if len(frame_ids) else None,
+                  frames=len(frame_ids)):
+            return self._process_batch(imgs, frame_ids)
+
+    def _process_batch(self, imgs, frame_ids):
         self._frame_boundary()
         cfg = self.cfg
         i = 0
@@ -573,7 +597,7 @@ class MonoSLAM:
         while pos < n_real:
             vel = self._velocity()
             if feats_all is None:
-                with torch.profiler.record_function(TRACK_BATCH_RANGE):
+                with span(TRACK_BATCH_RANGE):
                     cm = torch.arange(B, device=dev) < n_real  # padding never counts
                     Rs, ts, n_inls, feats_all, mp_feats, aux = self._batch_track(prep, vel, cm)
                     n_np, Rs_np, ts_np, ref_now, cc_np = self._host_copy(
@@ -582,7 +606,8 @@ class MonoSLAM:
             else:
                 # roll so the next uncommitted frame leads; the wrapped tail is
                 # tracked but ignored, and only the uncommitted head counts
-                with torch.profiler.record_function(RETRACK_RANGE):
+                count("frames_retracked", n_real - pos)
+                with span(RETRACK_RANGE):
                     cur_feats = O.FrameFeatures(*(torch.roll(f, -pos, dims=0) for f in feats_all))
                     cur_aux = self._roll_aux(aux, pos)
                     cm = torch.arange(B, device=dev) < (n_real - pos)
@@ -634,11 +659,11 @@ class MonoSLAM:
         in one batch; the host walks the outcomes in frame order with the
         per-frame policy of ``_try_initialize``.  Returns the number of
         frames consumed (>= 1)."""
-        with torch.profiler.record_function(INIT_RANGE):
+        with span(INIT_RANGE):
             return self._init_consume_timed(imgs, frame_ids)
 
     def _init_consume_timed(self, imgs, frame_ids):
-        with torch.profiler.record_function(EXTRACTION_RANGE):
+        with span(EXTRACTION_RANGE):
             feats_all = self._extract(self._prep_batch(imgs, 0).to(torch.float32))
         start = 0
         if self.ref_feats is None:
@@ -687,20 +712,25 @@ class MonoSLAM:
         if db is None:
             return None
         cfg = self.cfg
-        with torch.profiler.record_function(PLACE_RANGE):
+        with span(PLACE_RANGE):
             _, bow = db.compute_bow(feats.desc, feats.valid)
             exclude = torch.zeros(cfg.max_keyframes, dtype=torch.bool, device=self.device)
             # the full DetectRelocalizationCandidates policy: covisibility-group
             # accumulation, not the best scores alone
             slots, _ = db.detect_candidates(bow, exclude, n_best=3, min_rel_score=0.75,
                                             covis=MS.covisibility_matrix(self.m))
-        with torch.profiler.record_function(RELOC_RANGE):
+        count("relocalize_attempts")
+        with span(RELOC_RANGE):
             for cand in slots:
                 Xw, rays, ok = T.reloc_matches(self.m, cand, feats, self.cam)
-                if int(torch.sum(ok)) < RELOC_MIN_MATCHES:
+                with device_read():
+                    n_ok = int(torch.sum(ok))
+                if n_ok < RELOC_MIN_MATCHES:
                     continue
                 res = PNP.pnp_ransac(Xw, rays, ok, self._pnp_sets(ok, frame_id))
-                if not bool(res.success):
+                with device_read():
+                    success = bool(res.success)
+                if not success:
                     continue
                 mp_mask, _ = MS.local_map_mask(self.m, cand, n_neighbors=cfg.local_window)
                 Rcw, tcw, n_inl, mp_of_feat, _, _ = T.track_frame(
@@ -708,8 +738,10 @@ class MonoSLAM:
                     bf=0.0,
                 )
                 self._mp_remap = None  # fresh bindings against the current map
-                n = int(n_inl)
+                with device_read():
+                    n = int(n_inl)
                 if n >= 2 * cfg.min_tracked_points:
+                    count("relocalize_ok")
                     self.last_kf_slot = cand
                     self.vel = None
                     return Rcw, tcw, n, mp_of_feat
@@ -732,7 +764,7 @@ class MonoSLAM:
                 return
             self.reloc_db = KeyFrameDatabase(vocab, self.cfg.max_keyframes, idf=idf,
                                              device=self.device)
-        with torch.profiler.record_function(PLACE_RANGE):
+        with span(PLACE_RANGE):
             _, bow = self.reloc_db.compute_bow(self.m.kf_desc[slot], self.m.kf_feat_valid[slot])
             self.reloc_db.add(slot, bow)
 
@@ -742,11 +774,16 @@ class MonoSLAM:
         (:func:`..tracking.insert_keyframe_step`); the host reads back the
         new allocation pointer.  ``xy_r``: a fisheye rig's right-camera
         pixel per feature."""
+        with span(MAPPER_RANGE):
+            self._mapper_pass(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr, depth, xy_r)
+
+    def _mapper_pass(self, feats, frame_id, Rcw, tcw, mp_of_feat, n_inl, uvr, depth, xy_r):
         cfg = self.cfg
         slot = self._alloc_kf_slot()
         if slot is None:
             return  # at capacity with no culled slot to recycle
         self.kf_inserted += 1
+        count("keyframes_inserted")
         Rcw, tcw = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
                     for x in (Rcw, tcw))
         NF = cfg.n_features
@@ -758,24 +795,27 @@ class MonoSLAM:
         # free-list half of the map-point lifecycle: compact culled slots
         # away before the allocator runs out
         if self.n_mp > 0.85 * cfg.max_map_points:
-            # compaction permutes point slots under an in-flight GBA's
-            # snapshot: finish it first
-            if self.loop_closer is not None:
-                self.loop_closer.finish_gba(self)
-            self.m, n_valid, inv = MS.compact_map_points(self.m)
-            self.n_mp = int(n_valid)
-            mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
-            self._mp_remap = inv if self._mp_remap is None else (
-                MS.compose_point_remaps(self._mp_remap, inv)
-            )
-        with torch.profiler.record_function(KEYFRAME_RANGE):
+            with span(COMPACT_RANGE):
+                # compaction permutes point slots under an in-flight GBA's
+                # snapshot: finish it first
+                if self.loop_closer is not None:
+                    self.loop_closer.finish_gba(self)
+                self.m, n_valid, inv = MS.compact_map_points(self.m)
+                with device_read():
+                    self.n_mp = int(n_valid)
+                mp_of_feat = MS.remap_point_bindings(mp_of_feat, inv)
+                self._mp_remap = inv if self._mp_remap is None else (
+                    MS.compose_point_remaps(self._mp_remap, inv)
+                )
+        with span(KEYFRAME_RANGE):
             self.m, n_mp = T.insert_keyframe_step(
                 self.m, slot, Rcw, tcw, int(frame_id), feats, mp_of_feat,
                 uvr if uvr is not None else none(), depth if depth is not None else none(),
                 self.n_mp, self.cam, cfg, n_neighbors=cfg.triangulate_neighbors,
                 bf=cfg.bf, has_depth=depth is not None, xy_r=xy_r,
             )
-            self.n_mp = int(n_mp)
+            with device_read():
+                self.n_mp = int(n_mp)
         self.kf_frame_ids[slot] = int(frame_id)
         self.last_kf_slot = slot
         self.frames_since_kf = 0
@@ -806,8 +846,9 @@ class MonoSLAM:
         """Queue keyframe ``slot``'s detection (device work only); it finishes
         at the next frame boundary, several queued ones with one copy."""
         self._maybe_build_loop_closer(feats)
-        with torch.profiler.record_function(PLACE_RANGE):
+        with span(PLACE_RANGE):
             self._pending_loops.append(self.loop_closer.start_detect(self, slot))
+        count("loop_detect_queued")
 
     # ------------------------------------------------------------------
     def _orb_args(self) -> dict:
@@ -819,7 +860,7 @@ class MonoSLAM:
 
     def _pyramid_atlas(self, img: torch.Tensor):
         """(pyramid, its atlas) of an (H, W) image or a (B, H, W) batch."""
-        with torch.profiler.record_function(PYRAMID_RANGE):
+        with span(PYRAMID_RANGE):
             pyr = tuple(I.build_pyramid(img, self.cfg.n_levels, self.cfg.scale_factor))
             return pyr, I.build_atlas(pyr)
 
@@ -839,42 +880,46 @@ class MonoSLAM:
             mp_visible=self.m.mp_visible + vis.to(torch.int32),
             mp_found=self.m.mp_found + found.to(torch.int32),
         )
-        self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, int(n_inl),
+        with device_read():
+            n = int(n_inl)
+        self._after_track(feats, frame_id, Rp, tp, Rcw, tcw, n,
                           mp_of_feat, uvr=uvr, depth=depth, xy_r=xy_r)
 
     def _after_track(self, feats, frame_id, Rp, tp, Rcw, tcw, n_inl,
                      mp_of_feat, uvr=None, depth=None, xy_r=None):
         cfg = self.cfg
-        if n_inl < cfg.min_tracked_points:
-            reloc = self._try_relocalize(feats, frame_id)
-            if reloc is not None:
-                Rcw, tcw, n_inl, mp_of_feat = reloc
-            else:
-                self._update_lost_state(False)
-                self.vel = None
-                self._record(frame_id, Rp, tp, n_inl)
-                self.frames_since_kf += 1
-                return
-        self._update_lost_state(True)
-        if self.keep_frame_overlay:
-            self._record_overlay(feats, mp_of_feat, frame_id)
-        self.vel = se3.compose((Rcw, tcw), se3.inverse(self._last_pose()))
-        self.frames_since_kf += 1
-        ref_now = (
-            self.last_kf_slot,
-            _np(self.m.kf_Rcw[self.last_kf_slot]),
-            _np(self.m.kf_tcw[self.last_kf_slot]),
-        )
-        self._record(frame_id, Rcw, tcw, n_inl, ref_pose=ref_now)
-        tc = ntc = None
-        if depth is not None:
-            close_th = (cfg.bf / self.cam.fx) * cfg.th_depth
-            close = (depth > 0) & (depth < close_th)
-            counts = torch.stack([
-                torch.sum((mp_of_feat >= 0) & close), torch.sum((mp_of_feat < 0) & close),
-            ])
-            tc, ntc = (int(c) for c in _np(counts))
-        if self._need_new_kf(n_inl, tracked_close=tc, nontracked_close=ntc):
+        with span(AFTER_TRACK_RANGE):
+            if n_inl < cfg.min_tracked_points:
+                reloc = self._try_relocalize(feats, frame_id)
+                if reloc is not None:
+                    Rcw, tcw, n_inl, mp_of_feat = reloc
+                else:
+                    self._update_lost_state(False)
+                    self.vel = None
+                    self._record(frame_id, Rp, tp, n_inl)
+                    self.frames_since_kf += 1
+                    return
+            self._update_lost_state(True)
+            if self.keep_frame_overlay:
+                self._record_overlay(feats, mp_of_feat, frame_id)
+            self.vel = se3.compose((Rcw, tcw), se3.inverse(self._last_pose()))
+            self.frames_since_kf += 1
+            ref_now = (
+                self.last_kf_slot,
+                _np(self.m.kf_Rcw[self.last_kf_slot]),
+                _np(self.m.kf_tcw[self.last_kf_slot]),
+            )
+            self._record(frame_id, Rcw, tcw, n_inl, ref_pose=ref_now)
+            tc = ntc = None
+            if depth is not None:
+                close_th = (cfg.bf / self.cam.fx) * cfg.th_depth
+                close = (depth > 0) & (depth < close_th)
+                counts = torch.stack([
+                    torch.sum((mp_of_feat >= 0) & close), torch.sum((mp_of_feat < 0) & close),
+                ])
+                tc, ntc = (int(c) for c in _np(counts))
+            need = self._need_new_kf(n_inl, tracked_close=tc, nontracked_close=ntc)
+        if need:
             self._insert_keyframe(feats, frame_id, Rcw, tcw, mp_of_feat, n_inl,
                                   uvr=uvr, depth=depth, xy_r=xy_r)
 
@@ -915,7 +960,9 @@ class MonoSLAM:
 
     def _record(self, frame_id, Rcw, tcw, n_inl, ref_pose=None):
         """Append a trajectory record; ``ref_pose`` = (ref_slot, Rr, tr), the
-        reference keyframe's pose at track time."""
+        reference keyframe's pose at track time.  Every frame handed to the
+        facade gets one, so the ``frames`` counter counts here."""
+        count("frames")
         Rn, tn = _np(Rcw), _np(tcw)
         if ref_pose is not None:
             ref_slot, Rr, tr = ref_pose
@@ -1015,18 +1062,22 @@ class StereoSLAM(MonoSLAM):
 
     def process(self, img_left, img_right, frame_id: int):
         """Feed one rectified grayscale pair, (H, W) each, values in [0, 255]."""
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            return self._process_pair(img_left, img_right, frame_id)
+
+    def _process_pair(self, img_left, img_right, frame_id):
         cfg = self.cfg
         self._keep_image(img_left)
         # one pyramid and one atlas for the stacked pair, shared by
         # extraction (K1, K2 and K3 once each) and matching (K4 on the two
         # images' atlases, views of the pair's)
-        with torch.profiler.record_function(EXTRACTION_RANGE):
+        with span(EXTRACTION_RANGE):
             pair = torch.stack([self._on_device(img_left, torch.float32),
                                 self._on_device(img_right, torch.float32)])
             pyr, atlas = self._pyramid_atlas(pair)
             both = O.extract_from_atlas(atlas, **self._orb_args())
             feats, feats_r = (O.FrameFeatures(*(f[i] for f in both)) for i in range(2))
-        with torch.profiler.record_function(STEREO_RANGE):
+        with span(STEREO_RANGE):
             sm = match_stereo(
                 feats, feats_r, tuple(p[0] for p in pyr), tuple(p[1] for p in pyr),
                 bf=cfg.bf, baseline=cfg.bf / self.cam.fx, n_levels=cfg.n_levels,
@@ -1046,7 +1097,8 @@ class StereoSLAM(MonoSLAM):
         cfg = self.cfg
         eye = torch.eye(3, dtype=torch.float32, device=self.device)
         zero = torch.zeros(3, dtype=torch.float32, device=self.device)
-        n_depth = int(torch.sum((depth > 0) & feats.valid))
+        with device_read():
+            n_depth = int(torch.sum((depth > 0) & feats.valid))
         if n_depth < self.MIN_INIT_POINTS:
             self._record(frame_id, eye, zero, 0)
             return
@@ -1128,26 +1180,27 @@ class FisheyeStereoSLAM(StereoSLAM):
         """Both images as one atlas batch (K1, K2 and K3 once each), then the
         lapping-area match.  Returns (left features, depth (NF,) in the left
         camera frame or -1, uv2 (NF, 2) the matched right pixel or -1)."""
-        with torch.profiler.record_function(EXTRACTION_RANGE):
+        with span(EXTRACTION_RANGE):
             pair = torch.stack([self._on_device(img_left, torch.float32),
                                 self._on_device(img_right, torch.float32)])
             both = O.extract_from_atlas(self._pyramid_atlas(pair)[1], **self._orb_args())
             feats, feats_r = (_frame(both, i) for i in range(2))
-        with torch.profiler.record_function(STEREO_RANGE):
+        with span(STEREO_RANGE):
             depth, uv2 = T.fisheye_stereo_rows(feats, feats_r, self.cfg, self.Rlr, self.tlr)
         return feats, depth, uv2
 
     def process(self, img_left, img_right, frame_id: int):
         """Feed one fisheye pair, (H, W) each, values in [0, 255]."""
-        self._keep_image(img_left)
-        feats, depth, uv2 = self._fisheye_frontend(img_left, img_right)
-        if self.state == NOT_INITIALIZED:
-            uvr = torch.full((self.cfg.n_features,), -1.0, dtype=torch.float32,
-                             device=self.device)
-            self._stereo_initialize(feats, frame_id, uvr, depth, xy_r=uv2)
-        else:
-            self._track(feats, frame_id, depth=depth, xy_r=uv2)
-        return self.trajectory[-1] if self.trajectory else None
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            self._keep_image(img_left)
+            feats, depth, uv2 = self._fisheye_frontend(img_left, img_right)
+            if self.state == NOT_INITIALIZED:
+                uvr = torch.full((self.cfg.n_features,), -1.0, dtype=torch.float32,
+                                 device=self.device)
+                self._stereo_initialize(feats, frame_id, uvr, depth, xy_r=uv2)
+            else:
+                self._track(feats, frame_id, depth=depth, xy_r=uv2)
+            return self.trajectory[-1] if self.trajectory else None
 
 
 class RGBDSLAM(StereoSLAM):
@@ -1183,14 +1236,15 @@ class RGBDSLAM(StereoSLAM):
         return Rs, ts, n_inls, feats, mp_feats, (uvr, depth)
 
     def process(self, img, depth_img, frame_id: int):
-        self._keep_image(img)
-        with torch.profiler.record_function(EXTRACTION_RANGE):
-            feats = self._extract(self._on_device(img, torch.float32))
-        depth, uvr = T.rgbd_depth_rows(feats, self._on_device(depth_img, torch.float32),
-                                       self.cfg.bf)
+        with span(FRAME_RANGE, frame=frame_id, frames=1):
+            self._keep_image(img)
+            with span(EXTRACTION_RANGE):
+                feats = self._extract(self._on_device(img, torch.float32))
+            depth, uvr = T.rgbd_depth_rows(feats, self._on_device(depth_img, torch.float32),
+                                           self.cfg.bf)
 
-        if self.state == NOT_INITIALIZED:
-            self._stereo_initialize(feats, frame_id, uvr, depth)
-        else:
-            self._track(feats, frame_id, uvr=uvr, depth=depth)
-        return self.trajectory[-1] if self.trajectory else None
+            if self.state == NOT_INITIALIZED:
+                self._stereo_initialize(feats, frame_id, uvr, depth)
+            else:
+                self._track(feats, frame_id, uvr=uvr, depth=depth)
+            return self.trajectory[-1] if self.trajectory else None

@@ -53,7 +53,22 @@ from orb_slam3_noted_tpu_torch.optim.pose_opt import PoseObs, pose_optimization
 from orb_slam3_noted_tpu_torch.optim.window_ba import WindowObs, window_bundle_adjust
 from orb_slam3_noted_tpu_torch.pipeline import map_state as MS
 from orb_slam3_noted_tpu_torch.utils.interop import const_tensor, set_scalar
-from orb_slam3_noted_tpu_torch.utils.timing import report_saturation
+from orb_slam3_noted_tpu_torch.utils.timing import count, device_read, report_saturation, span
+
+
+# spans (``utils.timing.span``: with nothing recording, a flag check): a
+# pair's stereo matching (the batch front ends' too; the pyramid's is
+# ``ops.orb.PYRAMID_RANGE``); one ``track_frame`` call and in it each local-map
+# match and pose optimisation; the mapper pass's steps
+STEREO_RANGE = "stereo_matching"
+TRACK_FRAME_RANGE = "track_frame"
+MATCH_RANGE = "match_local_map"
+POSE_OPT_RANGE = "pose_optimize"
+TRIANGULATE_RANGE = "triangulate"
+FUSE_RANGE = "fuse"
+CULL_POINTS_RANGE = "cull_points"
+LOCAL_BA_RANGE = "local_ba"
+CULL_KF_RANGE = "cull_keyframes"
 
 
 def rig_extrinsic(cfg: SlamConfig) -> tuple[np.ndarray, np.ndarray]:
@@ -206,28 +221,45 @@ def track_frame(
     right-camera pixel per feature, -1 for none).  Returns (Rcw, tcw,
     n_inliers, mp_of_feature (NF,) int32, vis (MP,), found (MP,)).
     """
+    with span(TRACK_FRAME_RANGE) as sp:
+        return _track_frame(m, feats, Rcw_pred, tcw_pred, local_mp_mask, cam, cfg, feat_uvr, bf,
+                            feat_uv2, sp)
+
+
+def _track_frame(m, feats, Rcw_pred, tcw_pred, local_mp_mask, cam, cfg, feat_uvr, bf, feat_uv2,
+                 sp):
     MP = m.mp_pos.shape[0]
     NF = feats.xy.shape[0]
     NC = min(MP, max(2048, 1 << (NF - 1).bit_length()))
     rig2 = _second_camera(cfg, m.mp_pos.device)
+    count("track_calls")
 
-    obs, f_idx, vis = match_local_map(
-        m, feats, Rcw_pred, tcw_pred, local_mp_mask, cam, cfg, feat_uvr=feat_uvr,
-        feat_uv2=feat_uv2,
-    )
-    res = _optimize_compact(m, obs, Rcw_pred, tcw_pred, cam, bf, NC, rig2)
+    with span(MATCH_RANGE):
+        obs, f_idx, vis = match_local_map(
+            m, feats, Rcw_pred, tcw_pred, local_mp_mask, cam, cfg, feat_uvr=feat_uvr,
+            feat_uv2=feat_uv2,
+        )
+    with span(POSE_OPT_RANGE):
+        res = _optimize_compact(m, obs, Rcw_pred, tcw_pred, cam, bf, NC, rig2)
 
     # wide-window retry when the narrow search fails: 3x radius, re-optimise
     # from the first result if it is a usable seed, keep the better one
-    n0 = int(res.n_inliers)
+    with device_read():
+        n0 = int(res.n_inliers)
     if n0 < 25:
+        count("track_wide_search")
+        sp.set(wide=True)
         Rs, ts = (res.Rcw, res.tcw) if n0 >= 10 else (Rcw_pred, tcw_pred)
-        obs2, f_idx2, vis2 = match_local_map(
-            m, feats, Rs, ts, local_mp_mask, cam, cfg, feat_uvr=feat_uvr, radius_scale=3.0,
-            feat_uv2=feat_uv2,
-        )
-        res2 = _optimize_compact(m, obs2, Rs, ts, cam, bf, NC, rig2)
-        if int(res2.n_inliers) > n0:
+        with span(MATCH_RANGE):
+            obs2, f_idx2, vis2 = match_local_map(
+                m, feats, Rs, ts, local_mp_mask, cam, cfg, feat_uvr=feat_uvr, radius_scale=3.0,
+                feat_uv2=feat_uv2,
+            )
+        with span(POSE_OPT_RANGE):
+            res2 = _optimize_compact(m, obs2, Rs, ts, cam, bf, NC, rig2)
+        with device_read():
+            n2 = int(res2.n_inliers)
+        if n2 > n0:
             res, obs, f_idx, vis = res2, obs2, f_idx2, vis2
 
     # map point per frame feature (inverse of the matching); non-kept
@@ -474,39 +506,45 @@ def insert_keyframe_step(
         m, slot, Rcw, tcw, frame_id,
         feats.xy, feats.level, feats.angle, feats.desc, feats.valid, mp_of_feat, uvr, xy_r=xy_r,
     )
-    if has_depth:
-        out = stereo_points_from_depth(m, slot, depth, cam, cfg, bf=bf)
-        m, n_mp = _add_candidates_dev(m, slot, out, n_mp)
+    with span(TRIANGULATE_RANGE):
+        if has_depth:
+            out = stereo_points_from_depth(m, slot, depth, cam, cfg, bf=bf)
+            m, n_mp = _add_candidates_dev(m, slot, out, n_mp)
 
-    # all top covisible neighbours in one batch; a feature triangulated by
-    # several neighbours keeps only its first (best-covisibility) hit
-    NF = m.kf_xy.shape[1]
-    w = MS.covisibility_weights(m, slot)
-    nbs = topk_stable(w, n_neighbors)[1]                                # (N,)
-    pos_w, desc, normal, dmin, dmax, feat_a, feat_b, acc = triangulate_between(
-        m, slot, nbs, cam, cfg)
-    acc = acc & (w[nbs] > 0)[:, None]
-    k_first = torch.argmax(acc.to(torch.uint8), dim=0)                  # (NF,)
-    keep = acc & (torch.arange(n_neighbors, device=dev)[:, None] == k_first[None, :])
-    out = (
-        pos_w.reshape(-1, 3), desc.reshape(-1, 8), normal.reshape(-1, 3),
-        dmin.reshape(-1), dmax.reshape(-1),
-        feat_a.reshape(-1), feat_b.reshape(-1), keep.reshape(-1),
-    )
-    m, n_mp = _add_candidates_dev(m, slot, out, n_mp,
-                                  kf_b_override=nbs.repeat_interleave(NF))
+        # all top covisible neighbours in one batch; a feature triangulated by
+        # several neighbours keeps only its first (best-covisibility) hit
+        NF = m.kf_xy.shape[1]
+        w = MS.covisibility_weights(m, slot)
+        nbs = topk_stable(w, n_neighbors)[1]                                # (N,)
+        pos_w, desc, normal, dmin, dmax, feat_a, feat_b, acc = triangulate_between(
+            m, slot, nbs, cam, cfg)
+        acc = acc & (w[nbs] > 0)[:, None]
+        k_first = torch.argmax(acc.to(torch.uint8), dim=0)                  # (NF,)
+        keep = acc & (torch.arange(n_neighbors, device=dev)[:, None] == k_first[None, :])
+        out = (
+            pos_w.reshape(-1, 3), desc.reshape(-1, 8), normal.reshape(-1, 3),
+            dmin.reshape(-1), dmax.reshape(-1),
+            feat_a.reshape(-1), feat_b.reshape(-1), keep.reshape(-1),
+        )
+        m, n_mp = _add_candidates_dev(m, slot, out, n_mp,
+                                      kf_b_override=nbs.repeat_interleave(NF))
 
-    mp_mask, kf_mask = MS.local_map_mask(m, slot, n_neighbors=cfg.local_window)
-    m = fuse_map_points(m, slot, mp_mask, cam, cfg)
-    m = MS.cull_map_points(m, slot)
-    m = MS.update_point_stats(m, mp_mask, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor)
+    with span(FUSE_RANGE):
+        mp_mask, kf_mask = MS.local_map_mask(m, slot, n_neighbors=cfg.local_window)
+        m = fuse_map_points(m, slot, mp_mask, cam, cfg)
+    with span(CULL_POINTS_RANGE):
+        m = MS.cull_map_points(m, slot)
+        m = MS.update_point_stats(m, mp_mask, n_levels=cfg.n_levels,
+                                  scale_factor=cfg.scale_factor)
     if not visual_ba:
         return m, n_mp
-    m = local_ba(m, slot, cam, cfg, window=cfg.local_window, bf=bf)
-    protect = torch.zeros(m.kf_valid.shape[0], dtype=torch.bool, device=dev)
-    set_scalar(protect, slot, True)
-    set_scalar(protect, 0, True)
-    return MS.cull_keyframes(m, kf_mask, protect), n_mp
+    with span(LOCAL_BA_RANGE):
+        m = local_ba(m, slot, cam, cfg, window=cfg.local_window, bf=bf)
+    with span(CULL_KF_RANGE):
+        protect = torch.zeros(m.kf_valid.shape[0], dtype=torch.bool, device=dev)
+        set_scalar(protect, slot, True)
+        set_scalar(protect, 0, True)
+        return MS.cull_keyframes(m, kf_mask, protect), n_mp
 
 
 # ---------------------------------------------------------------------------
@@ -794,19 +832,22 @@ def stereo_frontend_batch(imgs_u8, cam, cfg, bf):
     :func:`..ops.stereo.match_stereo` over the B pairs (K4 once).  Returns
     (featsL (leading B), uvr (B, NF), depth (B, NF))."""
     B = imgs_u8.shape[0] // 2
-    pyr = tuple(image_ops.build_pyramid(imgs_u8.to(torch.float32), cfg.n_levels,
-                                        cfg.scale_factor))
-    atlas = image_ops.build_atlas(pyr)
+    with span(O.PYRAMID_RANGE):
+        pyr = tuple(image_ops.build_pyramid(imgs_u8.to(torch.float32), cfg.n_levels,
+                                            cfg.scale_factor))
+        atlas = image_ops.build_atlas(pyr)
     feats2 = O.extract_from_atlas(atlas, **_orb_kw(cfg))
     featsL = O.FrameFeatures(*(f[:B] for f in feats2))
     featsR = O.FrameFeatures(*(f[B:] for f in feats2))
-    sm = match_stereo(
-        featsL, featsR, tuple(p[:B] for p in pyr), tuple(p[B:] for p in pyr),
-        bf=bf, baseline=bf / cam.fx, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
-        atlases=(atlas._replace(image=atlas.image[:B]), atlas._replace(image=atlas.image[B:])),
-    )
-    return (featsL, torch.where(sm.valid, sm.u_right, -1.0),
-            torch.where(sm.valid, sm.depth, -1.0))
+    with span(STEREO_RANGE):
+        sm = match_stereo(
+            featsL, featsR, tuple(p[:B] for p in pyr), tuple(p[B:] for p in pyr),
+            bf=bf, baseline=bf / cam.fx, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor,
+            atlases=(atlas._replace(image=atlas.image[:B]),
+                     atlas._replace(image=atlas.image[B:])),
+        )
+        return (featsL, torch.where(sm.valid, sm.u_right, -1.0),
+                torch.where(sm.valid, sm.depth, -1.0))
 
 
 def fisheye_stereo_rows(feats_l, feats_r, cfg: SlamConfig, Rlr, tlr):
@@ -836,7 +877,8 @@ def fisheye_frontend_batch(imgs_u8, cfg, Rlr, tlr):
     feats2 = O.extract_orb_batch(imgs_u8.to(torch.float32), **_orb_kw(cfg))
     featsL = O.FrameFeatures(*(f[:B] for f in feats2))
     featsR = O.FrameFeatures(*(f[B:] for f in feats2))
-    return (featsL, *fisheye_stereo_rows(featsL, featsR, cfg, Rlr, tlr))
+    with span(STEREO_RANGE):
+        return (featsL, *fisheye_stereo_rows(featsL, featsR, cfg, Rlr, tlr))
 
 
 def rgbd_depth_rows(feats: O.FrameFeatures, dmap: torch.Tensor, bf: float):

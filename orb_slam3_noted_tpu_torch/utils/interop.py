@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from orb_slam3_noted_tpu_torch.utils.timing import device_read
+
 
 @functools.lru_cache(maxsize=256)
 def const_tensor(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
@@ -73,8 +75,10 @@ def pull(*xs: torch.Tensor) -> list:
     """One device-to-host copy of several tensors: flattened to float32
     (every value that passes here is a float32 or an integer below 2^24),
     copied at once, and split back into numpy arrays of their shapes and
-    kinds (bool, int64 or float32)."""
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs]).cpu().numpy()
+    kinds (bool, int64 or float32).  The copy is a ``device_read`` span."""
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in xs])
+    with device_read():
+        flat = flat.cpu().numpy()
     out, o = [], 0
     for x in xs:
         a = flat[o:o + x.numel()].reshape(x.shape)

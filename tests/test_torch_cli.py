@@ -164,7 +164,14 @@ def test_cli_euroc_stereo_layout(both_runs):
     np.testing.assert_array_equal(trp[:, 0], trj[:, 0])  # the frames' stamps
     assert [m["event"] for m in mp] == [m["event"] for m in mj] == ["dispatch"] * N_FRAMES + [
         "final"]
-    assert mp[-1].keys() == mj[-1].keys()
+    # the port's lines carry every span and counter of its recorder: the
+    # final one also those of the evaluation after the last dispatch (its
+    # device reads), the lap the JAX package's stages and more, and one frame
+    # counted a dispatch
+    assert mp[-1].keys() - {"stages", "counters"} == mj[-1].keys()
+    stages = lambda lines: {n for m in lines for n in m.get("stages", {})}
+    assert stages(mj) <= stages(mp)
+    assert [m.get("counters", {}).get("frames") for m in mp[:-1]] == [1] * N_FRAMES
     assert ckp == ckj
 
 
