@@ -12,10 +12,13 @@ The LM outer loop accepts or rejects each step on the cost (lambda x0.5 /
 x5) with a ``torch.where``: nothing is read back inside the LM or PCG loops.
 
 Sums over the K keyframe slots (Hpp, gp, the preconditioner blocks, U y in
-every PCG iteration) are one-hot products; sums over landmarks are segment
-sums over the observations sorted once by point (``ops/segsum.py``).  Both
-run in a fixed order, so a step gives the same result in every run on the
-card (``tests/test_torch_cuda.py``).
+every PCG iteration) go through ``ops/gba_kernels.py``: on the card
+hand-written kernels over the observations sorted once by slot, the PCG
+three launches an iteration; on the CPU their plain versions, one-hot
+products.  Sums over landmarks are segment sums over the observations
+sorted once by point (``ops/segsum.py``; inside the PCG on the card, the
+point pass kernel).  All run in a fixed order, so a step gives the same
+result in every run on the card (``tests/test_torch_cuda.py``).
 
 A fisheye rig's second camera adds its two rows to every observation that
 has a right-camera pixel (``kf_xy_r``).
@@ -42,6 +45,7 @@ import torch
 from orb_slam3_noted_tpu_torch.geometry import se3, so3
 from orb_slam3_noted_tpu_torch.geometry.linalg3 import inv3
 from orb_slam3_noted_tpu_torch.models import cameras as cam_mod
+from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
 from orb_slam3_noted_tpu_torch.ops.segsum import segment_order, segment_sum
 from orb_slam3_noted_tpu_torch.optim import factors
 from orb_slam3_noted_tpu_torch.optim.ba import BAProblem, BAResult
@@ -66,12 +70,20 @@ _CALLS = itertools.count()  # the index a GBA call's spans carry
 
 def pose_onehot(obs: factors.ReprojObs, K: int) -> torch.Tensor:
     """(K, O) float32 one-hot of each observation's pose: the pose-side
-    segment sums as products, in a fixed order."""
+    segment sums as products, in a fixed order (the plain versions')."""
     ks = torch.arange(K, device=obs.pose_idx.device)
     return (ks[:, None] == obs.pose_idx.long()[None, :]).to(torch.float32)
 
 
-def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, oh_pose,
+def pose_segments(obs: factors.ReprojObs, K: int) -> gk.PoseSegments:
+    """The observations grouped by keyframe slot for the pose-side sums:
+    sorted by slot on the card, the one-hot on the CPU.  Made once a call."""
+    if obs.pose_idx.device.type == "cuda":
+        return gk.pose_order(obs.pose_idx, K, obs.valid)
+    return gk.PoseSegments(onehot=pose_onehot(obs, K))
+
+
+def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, pose_seg,
                  pt_order, rig2=()):
     """Residual blocks at one linearisation point: (W (O, 6, 3), Hpp (K, 6,
     6), gp (K, 6), Hll (M, 3, 3), gl (M, 3), cost).  Fixed poses and points
@@ -92,8 +104,8 @@ def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, 
     wr = w[:, None] * r
     W = torch.einsum("oai,oaj->oij", wJp, Jl)
     n_obs = r.shape[0]
-    pose_side = oh_pose @ torch.cat([torch.einsum("oai,oaj->oij", wJp, Jp).reshape(n_obs, 36),
-                                     torch.einsum("oai,oa->oi", Jp, wr)], dim=1)
+    pose_side = gk.pose_sum(torch.cat([torch.einsum("oai,oaj->oij", wJp, Jp).reshape(n_obs, 36),
+                                       torch.einsum("oai,oa->oi", Jp, wr)], dim=1), pose_seg)
     Hpp = pose_side[:, :36].reshape(K, 6, 6)
     gp = pose_side[:, 36:]
     Hll = segment_sum(torch.einsum("oai,oaj->oij", w[:, None, None] * Jl, Jl), li, M, pt_order)
@@ -101,51 +113,27 @@ def _eval_blocks(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, bf, 
     return W, Hpp, gp, Hll, gl, cost
 
 
-def _pcg(matvec, Pinv, b, n_iters: int):
-    """Block-Jacobi preconditioned CG on the (K, 6) pose system."""
-    def precond(r):
-        return torch.einsum("kij,kj->ki", Pinv, r)
-
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    for _ in range(n_iters):
-        Ap = matvec(p)
-        pAp = torch.sum(p * Ap)
-        alpha = torch.where(torch.abs(pAp) > 1e-20, rz / pAp, 0.0)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = torch.where(torch.abs(rz) > 1e-20, rz_new / rz, 0.0)
-        p = z + beta * p
-        rz = rz_new
-    return x
-
-
-def _schur_rhs_coupling(W, Cinv, gl, point_idx, oh_pose):
+def _schur_rhs_coupling(W, Cinv, gl, point_idx, pose_seg):
     """U Hll^-1 gl, observation by observation."""
     y = torch.einsum("mij,mj->mi", Cinv, gl)
-    return oh_pose @ torch.einsum("oij,oj->oi", W, y[point_idx])
+    return gk.schur_pose_pass(W, y, point_idx, pose_seg)
 
 
 def _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
-                 cg_iters: int, oh_pose=None, pt_order=None, rig2=()):
+                 cg_iters: int, pose_seg=None, pt_order=None, rig2=()):
     """One LM step on one device; returns (Rcw, tcw, points, lam, cost).
-    ``oh_pose`` and ``pt_order`` (the observations' pose one-hot and point
-    order) are made here unless the caller keeps them.  It is the
-    point-block step on a mesh of this process alone, whose sums are the
-    identity."""
+    ``pose_seg`` and ``pt_order`` (the observations' slot and point orders:
+    :func:`pose_segments`, ``segment_order``) are made here unless the
+    caller keeps them.  It is the point-block step on a mesh of this
+    process alone, whose sums are the identity."""
     from orb_slam3_noted_tpu_torch.parallel.dist_ba import Mesh
 
-    if oh_pose is None:
-        oh_pose = pose_onehot(obs, Rcw.shape[0])
+    if pose_seg is None:
+        pose_seg = pose_segments(obs, Rcw.shape[0])
     if pt_order is None:
         pt_order = segment_order(obs.point_idx.long(), points.shape[0], obs.valid)
     return _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf,
-                                cg_iters, Mesh(1, 0, tcw.device), oh_pose, pt_order, rig2)
+                                cg_iters, Mesh(1, 0, tcw.device), pose_seg, pt_order, rig2)
 
 
 def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
@@ -159,14 +147,14 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
     with span(GBA_RANGE, call=next(_CALLS)):
         rig2 = (cam2, Rrl, trl)
         obs = prob.obs
-        oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
+        pose_seg = pose_segments(obs, prob.Rcw.shape[0])
         pt_order = segment_order(obs.point_idx, prob.points.shape[0], obs.valid)
 
         def phase(Rcw, tcw, points, active, use_huber, n):
             lam = torch.tensor(1e-4, dtype=tcw.dtype, device=tcw.device)
             for _ in range(n):
                 Rcw, tcw, points, lam, _ = _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active,
-                                                        use_huber, lam, bf, cg_iters, oh_pose,
+                                                        use_huber, lam, bf, cg_iters, pose_seg,
                                                         pt_order, rig2)
             return Rcw, tcw, points
 
@@ -180,7 +168,7 @@ def global_bundle_adjust(cam: cam_mod.Camera, prob: BAProblem, bf: float = 0.0,
 
 
 def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf,
-                         cg_iters: int, mesh, oh_pose, pt_order, rig2=()):
+                         cg_iters: int, mesh, pose_seg, pt_order, rig2=()):
     """One LM step of this rank's shard with the landmark table
     block-partitioned over ``mesh``: the rank owns points [s Mb, (s+1) Mb)
     and every observation of them (``shard_obs_by_point_block``), and its
@@ -188,16 +176,17 @@ def _gba_lm_step_ptblock(cam, Rcw, tcw, points, obs, prob, active, use_huber: bo
     Hpp, gp, the preconditioner's and the right-hand side's coupling
     terms, U y in every PCG iteration, and both costs, so the accept test
     is the same on every rank; the landmark update is gathered once.
-    ``oh_pose`` is the shard's pose one-hot, ``pt_order`` the segment order
-    of its local point ids.  Returns (Rcw, tcw, points, lam, cost)."""
+    ``pose_seg`` is the shard's rows by slot (:func:`pose_segments`),
+    ``pt_order`` the segment order of its local point ids.  Returns (Rcw,
+    tcw, points, lam, cost)."""
     count("gba_lm_steps")
     with span(LM_STEP_RANGE):
         return _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters,
-                        mesh, oh_pose, pt_order, rig2)
+                        mesh, pose_seg, pt_order, rig2)
 
 
 def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters, mesh,
-             oh_pose, pt_order, rig2):
+             pose_seg, pt_order, rig2):
     K, M = Rcw.shape[0], points.shape[0]
     dtype, dev = tcw.dtype, tcw.device
     Mb = M // mesh.size
@@ -209,7 +198,7 @@ def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_it
     prob_l = prob._replace(point_fixed=prob.point_fixed[base:base + Mb])
     with span(LINEARIZE_RANGE):
         W, Hpp, gp, Hll, gl, cost_old = _eval_blocks(cam, Rcw, tcw, pts_l, obs_l, prob_l, active,
-                                                     use_huber, bf, oh_pose, pt_order, rig2)
+                                                     use_huber, bf, pose_seg, pt_order, rig2)
         Hpp, gp, cost_old = mesh.psum(Hpp), mesh.psum(gp), mesh.psum(cost_old)
     with span(SCHUR_RANGE):
         eye6 = torch.eye(6, dtype=dtype, device=dev)
@@ -220,21 +209,17 @@ def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_it
         Cinv = inv3(Hll_d)  # (Mb, 3, 3): the owned block only
 
         wc = torch.einsum("oij,ojk->oik", W, Cinv[li])
-        Pk_sub = (oh_pose @ torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36)).reshape(K, 6, 6)
+        Pk_sub = gk.pose_sum(torch.einsum("oik,ojk->oij", wc, W).reshape(-1, 36),
+                             pose_seg).reshape(K, 6, 6)
         Pk = Hpp_d - mesh.psum(Pk_sub)
         Pk = 0.5 * (Pk + Pk.transpose(1, 2)) + 1e-6 * eye6
         Pinv = torch.linalg.solve_ex(Pk, eye6.expand(K, 6, 6)).result
 
-        rhs = -gp + mesh.psum(_schur_rhs_coupling(W, Cinv, gl, li, oh_pose))
-
-    def mv(x):
-        utx = segment_sum(torch.einsum("oij,oi->oj", W, x[pi]), li, Mb, pt_order)
-        y = torch.einsum("mij,mj->mi", Cinv, utx)
-        uy = mesh.psum(oh_pose @ torch.einsum("oij,oj->oi", W, y[li]))
-        return torch.einsum("kij,kj->ki", Hpp_d, x) - uy
+        rhs = -gp + mesh.psum(_schur_rhs_coupling(W, Cinv, gl, li, pose_seg))
 
     with span(PCG_RANGE):
-        dp = _pcg(mv, Pinv, rhs, cg_iters)
+        dp = gk.schur_pcg(W, Cinv, Hpp_d, Pinv, rhs, pi, li, pt_order, pose_seg, cg_iters,
+                          mesh.psum)
     with span(UPDATE_RANGE):
         utdp = segment_sum(torch.einsum("oij,oi->oj", W, dp[pi]), li, Mb, pt_order)
         dl_l = torch.einsum("mij,mj->mi", Cinv, -gl - utdp)
@@ -244,7 +229,7 @@ def _lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_it
         R_new = so3.normalize(R_new)
         p_new = points + dl
         cost_new = mesh.psum(_eval_blocks(cam, R_new, t_new, pts_l + dl_l, obs_l, prob_l, active,
-                                          use_huber, bf, oh_pose, pt_order, rig2)[-1])
+                                          use_huber, bf, pose_seg, pt_order, rig2)[-1])
         better = cost_new < cost_old
         return (torch.where(better, R_new, Rcw), torch.where(better, t_new, tcw),
                 torch.where(better, p_new, points), torch.where(better, lam * 0.5, lam * 5.0),
@@ -282,7 +267,7 @@ def _distributed_global_ba(cam, mesh, prob, bf, n_iters, n_iters_final, cg_iters
     cap = table.valid.shape[0] // n
     rows = slice(mesh.rank * cap, (mesh.rank + 1) * cap)
     obs = factors.ReprojObs(*(None if x is None else x[rows] for x in table))
-    oh_pose = pose_onehot(obs, prob.Rcw.shape[0])
+    pose_seg = pose_segments(obs, prob.Rcw.shape[0])
     pt_order = segment_order(obs.point_idx.long() - mesh.rank * Mb, Mb, obs.valid)
 
     def phase(Rcw, tcw, points, active, use_huber, n_steps):
@@ -290,7 +275,7 @@ def _distributed_global_ba(cam, mesh, prob, bf, n_iters, n_iters_final, cg_iters
         for _ in range(n_steps):
             Rcw, tcw, points, lam, _ = _gba_lm_step_ptblock(
                 cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters, mesh,
-                oh_pose, pt_order, rig2)
+                pose_seg, pt_order, rig2)
         return Rcw, tcw, points
 
     Rcw, tcw, points = phase(prob.Rcw, prob.tcw, prob.points, obs.valid, True, n_iters)
@@ -337,11 +322,11 @@ def full_map_problem(m, cfg, sample_stride: int = 1) -> BAProblem:
 
 
 def gba_step(cam, Rcw, tcw, points, obs, prob, active, use_huber: bool, lam, bf: float = 0.0,
-             cg_iters: int = 64, oh_pose=None, pt_order=None, cam2=None, Rrl=None, trl=None):
+             cg_iters: int = 64, pose_seg=None, pt_order=None, cam2=None, Rrl=None, trl=None):
     """One LM step of the matrix-free engine (the JAX package's
     ``gba_step_jit``): the slice ``SlicedGBA`` runs at a frame boundary."""
     return _gba_lm_step(cam, Rcw, tcw, points, obs, prob, active, use_huber, lam, bf, cg_iters,
-                        oh_pose, pt_order, (cam2, Rrl, trl))
+                        pose_seg, pt_order, (cam2, Rrl, trl))
 
 
 gba_step_jit = gba_step  # the JAX package's name for it (jitted there)
@@ -381,7 +366,7 @@ class SlicedGBA:
         self.n_iters, self.n_iters_final = n_iters, n_iters_final
         self.rig2 = _second_camera(cfg, m.mp_pos.device)
         self.prob = full_map_problem(m, cfg)
-        self.oh_pose = pose_onehot(self.prob.obs, m.kf_Rcw.shape[0])
+        self.pose_seg = pose_segments(self.prob.obs, m.kf_Rcw.shape[0])
         self.pt_order = segment_order(self.prob.obs.point_idx, m.mp_pos.shape[0],
                                       self.prob.obs.valid)
         self.snapR, self.snapt, self.snapp = m.kf_Rcw, m.kf_tcw, m.mp_pos
@@ -399,7 +384,7 @@ class SlicedGBA:
             return
         self.Rcw, self.tcw, self.points, self.lam, _ = gba_step(
             self.cam, self.Rcw, self.tcw, self.points, self.prob.obs, self.prob, self.active,
-            self.i < self.n_iters, self.lam, self.bf, self.cg_iters, self.oh_pose,
+            self.i < self.n_iters, self.lam, self.bf, self.cg_iters, self.pose_seg,
             self.pt_order, *self.rig2)
         self.i += 1
         if self.i == self.n_iters:

@@ -13,7 +13,8 @@ module as ``torch_port_dist``::
 
 ``run_jobs`` runs named jobs one after another on every rank, each with
 the card synchronised around it, and returns each job's output, its ms a
-call and the collectives a call made.  ``tests/test_torch_dist.py`` and
+call, the collectives a call made and the GBA kernels' launches over its
+calls (``ops/gba_kernels.py``; all 0 on the CPU).  ``tests/test_torch_dist.py`` and
 ``chip_smoke.py``'s phase 16 drive it.
 """
 
@@ -143,11 +144,14 @@ def run_jobs(mesh, jobs: dict, reps: int = 1):
     """Every job of ``jobs`` ({name: (job, args, kwargs)}) ``reps`` times in
     order on this rank: {name: {"out": the last call's output, "ms": ms a
     call (the card synchronised before and after), "collectives": a call's
-    reductions}}."""
+    reductions, "launches": the GBA kernels' launches over its calls}}."""
+    from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
+
     cuda = mesh.device.type == "cuda"
     res = {}
     for name, (job, args, kw) in jobs.items():
         ms = []
+        gk.reset_launch_counts()
         for _ in range(reps):
             if cuda:
                 torch.cuda.synchronize(mesh.device)
@@ -156,7 +160,8 @@ def run_jobs(mesh, jobs: dict, reps: int = 1):
             if cuda:
                 torch.cuda.synchronize(mesh.device)
             ms.append((time.perf_counter() - t0) * 1e3)
-        res[name] = {"out": out, "ms": ms, "collectives": mesh.collectives - n0}
+        res[name] = {"out": out, "ms": ms, "collectives": mesh.collectives - n0,
+                     "launches": gk.launch_counts()}
     return res
 
 

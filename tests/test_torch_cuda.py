@@ -669,10 +669,11 @@ def test_pose_graph_on_card_matches_cpu(dev):
 def test_gba_step_on_card_matches_cpu(dev):
     """One LM step of the matrix-free GBA (48 PCG iterations) on a stereo
     map, on the card and on the CPU: poses and points within 1e-4 (m).  Its
-    sums run in a fixed order (pose side one-hot products, landmark side
-    segment sums over the observations sorted by point), so five runs on the
-    card give the same step bit for bit (with ``index_add_``'s atomics they
-    spread by 7e-6 m to 1.2e-5 m on an H100).  Prints the spread."""
+    sums run in a fixed order (pose side the kernels of ``ops/gba_kernels.py``
+    over the observations sorted by slot, landmark side segment sums over
+    them sorted by point), so five runs on the card give the same step bit
+    for bit (with ``index_add_``'s atomics they spread by 7e-6 m to 1.2e-5 m
+    on an H100).  Prints the spread."""
     from orb_slam3_noted_tpu_torch.io.config import SlamConfig
     from orb_slam3_noted_tpu_torch.models.cameras import Camera, PINHOLE
     from orb_slam3_noted_tpu_torch.optim import gba
@@ -701,6 +702,207 @@ def test_gba_step_on_card_matches_cpu(dev):
           f"points {vs_cpu[2]:.3g} m; cost {float(runs[0][4]):.6g} (CPU {float(cpu[4]):.6g})")
     assert max(vs_cpu) <= 1e-4, vs_cpu
     assert spread_pts == 0.0 and spread_pose == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the global BA's reduced camera system (ops/gba_kernels.py)
+
+@pytest.fixture(scope="module")
+def gba_systems(dev):
+    """The reduced camera system of the first LM step at the benchmark's
+    capacity map (256 keyframes, 16,384 points, 307,200 rows) and of one
+    rank's shard of it on a 2-rank mesh (pad rows included), built by the
+    port's first code (one-hot pose sums) on the card."""
+    import test_torch_gba_kernels as TK
+
+    out = {}
+    for kind, name in (("mono", "cell"), ("shard", "shard2")):
+        cam, prob, obs, mesh, bf = TK.case(kind, dev, K=256, M=16384, per_kf=1200)
+        out[name] = (obs, TK.seed_system(cam, prob, obs, mesh, bf))
+    return out
+
+
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _gba_kernel_runs(s, seg, x, y):
+    """Each kernel's output on the system ``s``: (name, kernel, plain)."""
+    from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
+
+    W, Cinv, pi, li, oh = s["W"], s["Cinv"], s["pi"], s["li"], s["oh"]
+    Pinv = s["Pinv"].contiguous()
+    uy = gk.schur_pose_pass_plain(W, y, li, oh)
+    start = gk.pcg_start_plain(Pinv, s["rhs"])
+    step_in = lambda: tuple(t.clone() for t in start)
+    return [
+        ("schur_point_pass", gk.schur_point_pass(W, Cinv, x, pi, li, s["pt_order"]),
+         gk.schur_point_pass_plain(W, Cinv, x, pi, li, s["pt_order"])),
+        ("schur_pose_pass", gk.schur_pose_pass(W, y, li, seg), uy),
+        ("pose_sum_pk", gk.pose_sum(s["pk_rows"], seg), gk.pose_sum_plain(s["pk_rows"], oh)),
+        ("pcg_start", gk.pcg_start(Pinv, s["rhs"]), start),
+        ("pcg_step", gk.pcg_step(*step_in(), s["Hpp_d"], Pinv, uy),
+         gk.pcg_step_plain(*step_in(), s["Hpp_d"], Pinv, uy)),
+    ]
+
+
+@pytest.mark.parametrize("name", ["cell", "shard2"])
+def test_gba_kernels_match_plain(dev, gba_systems, name):
+    """Each kernel of the reduced camera system against its plain version
+    on the card, within 1e-5 relative (max |diff| over max |plain|: sums in
+    another order); the 42-column pose sums of the linearisation too, and a
+    whole 32-iteration solve within 1e-3 (the CG recursion carries each
+    iteration's rounding on).  Five runs of each give the same bits: every
+    sum is in a fixed order, no atomics."""
+    from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
+    from orb_slam3_noted_tpu_torch.optim import gba
+
+    obs, s = gba_systems[name]
+    seg = gba.pose_segments(obs, s["K"])
+    assert seg.onehot is None
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((s["K"], 6), generator=g, device=dev)
+    y = torch.randn((s["Mb"], 3), generator=g, device=dev)
+    rows42 = torch.randn((obs.valid.shape[0], 42), generator=g, device=dev)
+    rows42[~obs.valid] = 0.0  # rows that are not valid carry zeros in every sum
+    gk.reset_launch_counts()
+    runs = [_gba_kernel_runs(s, seg, x, y) + [
+        ("pose_sum_42", gk.pose_sum(rows42, seg), gk.pose_sum_plain(rows42, s["oh"]))]
+        for _ in range(5)]
+    assert gk.launch_counts() == {"schur_point_pass": 5, "schur_pose_pass": 5, "pose_sum": 10,
+                                  "pcg_start": 5, "pcg_step": 5}
+    errs = {}
+    for kname, got, want in runs[0]:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[kname] = max(_rel(a, b) for a, b in zip(got, want))
+    solve = [gk.schur_pcg(s["W"], s["Cinv"], s["Hpp_d"], s["Pinv"], s["rhs"], s["pi"], s["li"],
+                          s["pt_order"], seg, 32) for _ in range(5)]
+    errs["schur_pcg_32"] = _rel(solve[0], gk.schur_pcg(
+        s["W"].cpu(), s["Cinv"].cpu(), s["Hpp_d"].cpu(), s["Pinv"].cpu(), s["rhs"].cpu(),
+        s["pi"].cpu(), s["li"].cpu(), tuple(t.cpu() for t in s["pt_order"]),
+        gk.PoseSegments(onehot=s["oh"].cpu()), 32).to(dev))
+    print(f"GBA kernels against their plain versions ({name}): {errs}")
+    assert max(v for k, v in errs.items() if k != "schur_pcg_32") <= 1e-5, errs
+    assert errs["schur_pcg_32"] <= 1e-3, errs
+    for other in runs[1:]:
+        for (kname, got, _), (_, first, _) in zip(other, runs[0]):
+            assert _same_bits(got, first), kname
+    assert all(torch.equal(a, solve[0]) for a in solve[1:])
+
+
+def _same_bits(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["mono", "stereo", "shard"])
+def test_gba_on_card_takes_no_onehot(dev, monkeypatch, kind):
+    """A GBA on the card (the one-device call, and a shard's call on a
+    2-rank mesh) never builds the pose one-hot: its pose sums are the
+    kernels, its PCG three launches an iteration, one per PCG iteration
+    counted in ``gba_pcg_iters``; the result within 1e-4 of the CPU's."""
+    import test_torch_gba_kernels as TK
+
+    from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
+    from orb_slam3_noted_tpu_torch.ops.segsum import segment_order
+    from orb_slam3_noted_tpu_torch.optim import gba
+    from orb_slam3_noted_tpu_torch.utils import timing
+
+    # 12 rows a point on average, at least 5: each point well set, so that two
+    # summation orders stay close (with 1 or 2 rows a point's depth is free)
+    cam, prob, obs, mesh, bf = TK.case(kind, torch.device("cpu"), K=24, M=240, per_kf=120)
+    n1, n2, cg = 2, 1, 8
+
+    def call(p, o):
+        if mesh.size == 1:
+            r = gba.global_bundle_adjust(cam, p, bf, n1, n2, cg)
+            return r.Rcw, r.tcw, r.points, r.cost
+        Mb = p.points.shape[0] // mesh.size  # one LM step of the shard's rank
+        pt_order = segment_order(o.point_idx.long() - mesh.rank * Mb, Mb, o.valid)
+        lam = torch.tensor(1e-4, device=p.tcw.device)
+        out = gba._gba_lm_step_ptblock(cam, p.Rcw, p.tcw, p.points, o, p, o.valid, True, lam,
+                                       bf, cg, mesh, gba.pose_segments(o, p.Rcw.shape[0]),
+                                       pt_order)
+        return out[0], out[1], out[2], out[4]
+
+    cpu = call(prob, obs)
+
+    def to(x):
+        return type(x)(*(f if f is None else to(f) if isinstance(f, tuple) else f.to(dev)
+                         for f in x))
+
+    prob_d, obs_d = to(prob), to(obs)
+
+    def no_onehot(*a, **k):
+        raise AssertionError("pose_onehot on the card path")
+
+    monkeypatch.setattr(gba, "pose_onehot", no_onehot)
+    rec = timing.RECORDER
+    saved, enabled = dict(rec.counters), timing.Recorder.enabled
+    rec.counters.clear()
+    timing.Recorder.enabled = True
+    gk.reset_launch_counts()
+    try:
+        card = call(prob_d, obs_d)
+        counts = dict(rec.counters)
+    finally:
+        timing.Recorder.enabled = enabled
+        rec.counters.clear()
+        rec.counters.update(saved)
+    steps = n1 + n2 if mesh.size == 1 else 1
+    assert counts["gba_pcg_iters"] == steps * cg and counts["gba_lm_steps"] == steps
+    lc = gk.launch_counts()
+    assert lc["pcg_step"] == lc["schur_point_pass"] == lc["schur_pose_pass"] - steps == steps * cg
+    assert lc["pcg_start"] == steps and lc["pose_sum"] == 3 * steps
+    errs = [float((a.cpu() - b).abs().max()) for a, b in zip(card[:3], cpu[:3])]
+    print(f"GBA on the card without the one-hot ({kind}): card vs CPU {errs}, cost "
+          f"{float(card[3]):.6g} (CPU {float(cpu[3]):.6g})")
+    assert max(errs) <= 1e-4, errs
+
+
+def test_gba_kernel_wrappers_reject_bad_input(dev):
+    from orb_slam3_noted_tpu_torch.ops import gba_kernels as gk
+
+    O, K, M = 64, 4, 8
+    W = torch.zeros(O, 6, 3, device=dev)
+    Cinv = torch.zeros(M, 3, 3, device=dev)
+    x = torch.zeros(K, 6, device=dev)
+    idx = torch.zeros(O, dtype=torch.int64, device=dev)
+    lengths = torch.zeros(M, dtype=torch.int64, device=dev)
+    lengths[0] = O
+    order = (torch.arange(O, device=dev), lengths)
+    seg = gk.pose_order(idx, K, torch.ones(O, dtype=torch.bool, device=dev))
+    assert gk.schur_point_pass(W, Cinv, x, idx, idx, order).shape == (M, 3)
+    with pytest.raises(TypeError):  # float64 rows
+        gk.schur_point_pass(W.double(), Cinv, x, idx, idx, order)
+    with pytest.raises(TypeError):  # int32 indices
+        gk.schur_point_pass(W, Cinv, x, idx.int(), idx, order)
+    with pytest.raises(ValueError):  # (O, 3, 6) blocks
+        gk.schur_point_pass(W.reshape(O, 3, 6), Cinv, x, idx, idx, order)
+    with pytest.raises(ValueError):  # Cinv on the CPU
+        gk.schur_point_pass(W, Cinv.cpu(), x, idx, idx, order)
+    with pytest.raises(ValueError):  # an order of other points
+        gk.schur_point_pass(W, Cinv, x, idx, idx, (order[0], lengths[:-1]))
+    with pytest.raises(ValueError):  # a one-hot is no order on the card
+        gk.schur_pose_pass(W, torch.zeros(M, 3, device=dev), idx, gk.PoseSegments(
+            onehot=torch.zeros(K, O, device=dev)))
+    with pytest.raises(ValueError):  # a row order of other rows
+        gk.pose_sum(torch.zeros(O + 1, 36, device=dev), seg)
+    with pytest.raises(ValueError):  # non-contiguous rows
+        gk.pose_sum(torch.zeros(O, 72, device=dev)[:, ::2], seg)
+    with pytest.raises(ValueError):  # Pinv of other slots
+        gk.pcg_start(torch.zeros(K + 1, 6, 6, device=dev), x)
+    state = gk.pcg_start(torch.zeros(K, 6, 6, device=dev), x)
+    H = torch.zeros(K, 6, 6, device=dev)
+    with pytest.raises(ValueError):  # uy on the CPU
+        gk.pcg_step(*state, H, H, x.cpu())
+    with pytest.raises(TypeError):  # a float64 rz
+        gk.pcg_step(*state[:3], state[3].double(), H, H, x)
+    with pytest.raises(ValueError):  # a column-major Pinv
+        gk.pcg_step(*state, H, H.transpose(1, 2), x)
 
 
 def test_sim3_refine_on_card_matches_cpu(dev):

@@ -485,6 +485,6 @@ def test_build_dir_is_gitignored():
     assert rel in ignored
     assert ck.library_path().parent == ck.BUILD_DIR
     assert sorted(p.name for p in ck.CSRC.glob("*.cu")) == [
-        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu", "launch_floor.cu",
-        "sad_stereo.cu",
+        "brief_sample.cu", "fast_score.cu", "gaussian_blur7.cu", "gba_schur.cu",
+        "launch_floor.cu", "sad_stereo.cu",
     ]

@@ -412,13 +412,32 @@ def _rot_y(deg: float) -> np.ndarray:
     return np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
 
 
-@pytest.mark.parametrize("case", ["jax_loop", "jax_hypothesis", "turned", "elsewhere", "extra"])
+def _ladder_truth(cs, wide):
+    """The farthest from the truth of the wide arm's ladder refinements that
+    kept the gate's inliers, as ``run_loop_arm`` reports it."""
+    import base64
+
+    rwc = np.frombuffer(base64.b64decode(wide["rwc_f32"]), "<f4").reshape(-1, 3, 3)
+    twc = np.frombuffer(base64.b64decode(wide["twc_f64"]), "<f8").reshape(-1, 3)
+    passed = [cs.loop_truth((rwc, twc), *h["frames"], np.asarray(h["R"]), np.asarray(h["t"]))
+              for h in wide["sim3_refine"] if h["n_inliers"] >= cs.SIM3_MIN_INLIERS]
+    return {k: max(t[k] for t in passed) for k in ("rot_err_deg", "dir_err_deg")}
+
+
+@pytest.mark.parametrize("case", ["jax_loop", "jax_hypothesis", "turned", "elsewhere", "extra",
+                                  "after_gba_true", "after_gba_unmerged", "after_gba_far",
+                                  "gba_off_cpu", "kf_tail"])
 def test_loop_holds(case):
     """``chip_smoke.check_loop_arm`` on the wide arm of the fixture: a loop
     passes where the JAX run's ladder put it forward (its accepted loop, or
     a refinement that kept the gate's inliers) with the same rotation, and
     fails turned 2 degrees away, at a place the ladder never refined, or as
-    one loop more than the JAX run closed."""
+    one loop more than the JAX run closed.  After a GBA merged (frame 144),
+    one loop more at a place the ladder never refined passes as near the
+    truth as the ladder's refinements (301 -> 157 at 0.38 and 0.53 degrees,
+    as the kernels' lap closed it), and fails before the merge or 10 degrees
+    off the truth; the lap fails with its first GBA off the CPU's, or with a
+    third more keyframes than the JAX run inserted after the merge."""
     cs = _chip_smoke()
     ref = cs.load_fixture(cs.LOOP_FIXTURE, cs.LOOP_FRAMES)["loop_wide"]
     strong = [r for r in ref["sim3_refine"] if r["n_inliers"] >= cs.SIM3_MIN_INLIERS]
@@ -426,18 +445,37 @@ def test_loop_holds(case):
     early = min(strong, key=lambda r: r["frames"][0])
     turn = _rot_y(2.0)
     loop = {"jax_loop": kept, "jax_hypothesis": early, "turned": kept, "elsewhere": kept,
-            "extra": kept}[case]
+            "extra": kept}.get(case, kept)
     R = np.asarray(loop["R"]) @ (turn if case == "turned" else np.eye(3))
     frames = [loop["frames"][0] - 40, 200] if case == "elsewhere" else loop["frames"]
+    kf_frames = [d["frame_id"] for d in ref["detections"]]
     got = {"init_frame": ref["init_frame"], "tracked": ref["tracked"], "ate_m": ref["ate_m"],
            "loop_closing": True, "kf_inserted": ref["kf_inserted"],
-           "detections": ref["kf_inserted"],
-           "accepted": [{"frames": frames, "R": R.tolist()}] * (2 if case == "extra" else 1)}
+           "detections": ref["kf_inserted"], "kf_frames": kf_frames, "gba_merged_at": [],
+           "gba_vs_cpu": None, "jax_ladder_truth": _ladder_truth(cs, ref),
+           "accepted": [{"frames": frames, "R": R.tolist(), "gba_merged": 0}]
+           * (2 if case == "extra" else 1)}
+    if case.startswith("after_gba") or case in ("gba_off_cpu", "kf_tail"):
+        got["gba_merged_at"] = [144]
+        got["gba_vs_cpu"] = {"cost_rel": 8.0e-6, "pose_diff": 3.0e-4}
+    if case.startswith("after_gba"):
+        got["accepted"] = got["accepted"] + [{
+            "frames": [301, 157], "R": np.eye(3).tolist(),
+            "gba_merged": 0 if case == "after_gba_unmerged" else 1,
+            "rot_err_deg": 10.0 if case == "after_gba_far" else 0.38, "dir_err_deg": 0.53}]
+    if case == "gba_off_cpu":
+        got["gba_vs_cpu"]["cost_rel"] = 1.35e-3  # a pose-side sum that drops half the rows
+    if case == "kf_tail":
+        extra = [f + 1 for f in kf_frames if f >= 144][:len(kf_frames) // 6]
+        got["kf_frames"] = sorted(kf_frames + extra)
+        got["kf_inserted"] = got["detections"] = len(got["kf_frames"])
     got["loops_closed"] = len(got["accepted"])
-    if case in ("jax_loop", "jax_hypothesis") and abs(
+    if case in ("jax_loop", "jax_hypothesis", "after_gba_true") and abs(
             loop["frames"][1] - ref["accepted"][0]["frames"][1]) <= cs.LOOP_FRAME_MARGIN:
         cs.check_loop_arm("wide", got, ref)
         assert got["accepted"][0]["jax_hypothesis"]["rot_diff_deg"] < 1e-3
+        assert [a["held_to"] for a in got["accepted"]] == (
+            ["jax", "truth"] if case == "after_gba_true" else ["jax"])
     else:
         with pytest.raises(AssertionError):
             cs.check_loop_arm("wide", got, ref)
